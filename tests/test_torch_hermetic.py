@@ -1,0 +1,74 @@
+"""The port runs without JAX, MuJoCo or the JAX package.
+
+The machine with the card has PyTorch but neither JAX nor MuJoCo, so any
+import of them — or of ``deepmimic_mujoco_tpu``, whose modules import JAX —
+from ``deepmimic_mujoco_torch`` or ``chip_smoke.py`` would stop the port
+there at import.  One test runs the evaluation CLI in a subprocess whose
+import system refuses those packages; the other scans the sources."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.normpath(os.path.join(os.path.dirname(__file__), ".."))
+FORBIDDEN = ("jax", "jaxlib", "mujoco", "deepmimic_mujoco_tpu")
+
+_BLOCKER = f"""
+import runpy, sys
+FORBIDDEN = {FORBIDDEN!r}
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in FORBIDDEN:
+            raise ImportError(f"import of {{name}} refused")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+sys.argv = ["train_trpo", "--task", "evaluate", "--device", "cpu",
+            "--eval-episodes", "2", "--eval-horizon", "3"]
+runpy.run_module("deepmimic_mujoco_torch.cli.train_trpo", run_name="__main__")
+assert not [m for m in sys.modules if m.split(".")[0] in FORBIDDEN]
+"""
+
+
+def test_cli_evaluate_runs_with_jax_and_mujoco_refused():
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", _BLOCKER], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "Average length: 3.0" in proc.stdout
+
+
+def _sources():
+    pkg = os.path.join(ROOT, "deepmimic_mujoco_torch")
+    for dirpath, _, files in os.walk(pkg):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__")):
+            yield node.args[0].value.split(".")[0]
+
+
+@pytest.mark.parametrize("path", sorted(_sources()),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_port_sources_import_no_jax(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
