@@ -8,16 +8,18 @@ projected gradient steps of size 1/L, L = maxᵢ Σⱼ|Aᵢⱼ| accumulated in f
 Contact triples project onto the elliptic friction cone, limit rows clamp
 to ≥ 0.
 
-* :func:`apgd_solve` and :func:`apgd_solve_lanes` take the GROUPED row
-  layout ``[fn(nc) | ft1(nc) | ft2(nc) | lim(nl)]``, batch-major
-  ((B, ne, ne)) and env-axis-last ((ne, ne, B)) respectively — the
-  contracts of the two Pallas kernels they replace.  On a CUDA tensor they
-  launch the kernel (and count the launch in ``.launches``); on a CPU tensor
-  they compute the plain version; on anything else they raise.
+* :func:`apgd_solve` and :func:`apgd_solve_lanes` are the kernel's entry
+  points, batch-major ((B, ne, ne)) and env-axis-last ((ne, ne, B)).  By
+  default they take the GROUPED row layout ``[fn(nc) | ft1(nc) | ft2(nc) |
+  lim(nl)]`` — the contracts of the two Pallas kernels they replace; with
+  ``rows="interleaved"`` they take the solver's ``[n, t1, t2]`` triples, and
+  the kernel applies the row order itself.  On a CUDA tensor they launch
+  the kernel (and count the launch in ``.launches``); on a CPU tensor they
+  compute the plain version; on anything else they raise.
 * :func:`apgd` is the solver's dispatch (it replaces ``make_apgd``'s
-  ``custom_vmap`` rule): batch-first INTERLEAVED ``[n, t1, t2]`` triples in
-  and out, permuted to the grouped layout around the entry point that
-  ``layout`` names.
+  ``custom_vmap`` rule): batch-first interleaved tensors in and out, handed
+  to the entry point that ``layout`` names — as they are for ``blocks``
+  (one launch per solve), transposed for ``lanes``.
 * :func:`_apgd_scan` is the plain version in the interleaved layout — the
   CPU tests' and ``chip_smoke.py``'s oracle.
 """
@@ -32,7 +34,7 @@ import torch
 
 from deepmimic_mujoco_torch.ops import _build
 
-MAX_NE = 32  # one warp per env: lane i owns row i of A
+MAX_NE = 32  # the rows map to the 32 slots of two 16-row mma tiles
 
 
 def _group_perm(nc: int, nl: int) -> tuple[np.ndarray, np.ndarray]:
@@ -122,6 +124,7 @@ def _apgd_scan(a, b, mu, f0, *, iterations: int, nc: int, nl: int):
 # the CUDA kernel
 
 _LIB: list = []  # [ctypes.CDLL, _build.Built] once loaded
+ROWS = ("grouped", "interleaved")
 
 
 def load_kernel() -> _build.Built:
@@ -129,19 +132,52 @@ def load_kernel() -> _build.Built:
     record (library path, nvcc output, compile seconds)."""
     if not _LIB:
         lib, built = _build.load("apgd")
-        fn = lib.apgd_launch
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, i64, i32, i32, i32,
-                       i64, i64, i64, i64, i64, i64, i64, ptr]
-        fn.restype = ctypes.c_int
+        lib.apgd_launch.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, ptr, i64,
+                                    i32, i32, i32, i32, i32, i64, i64, i64,
+                                    i64, ptr]
+        lib.apgd_launch.restype = ctypes.c_int
+        lib.apgd_plan.argtypes = [ptr, i32, i64, i32, i32, i32, ptr]
+        lib.apgd_plan.restype = None
         _LIB.extend([lib, built])
     return _LIB[1]
 
 
-def _check(a, b, mu, f0, nc: int, nl: int, iterations: int, lanes: bool):
+def launch_plan(a, nc: int, lanes: bool) -> dict:
+    """The kernel's launch configuration for ``a`` (a CUDA tensor in the
+    layout of ``lanes``): envs and threads per block, dynamic shared memory
+    bytes, whether the 8-slot map applies and whether A is copied with
+    vector loads."""
+    load_kernel()
+    B, ne = (a.shape[2], a.shape[0]) if lanes else (a.shape[0], a.shape[1])
+    out = (ctypes.c_int * 5)()
+    _LIB[0].apgd_plan(a.data_ptr(), int(a.dtype == torch.bfloat16), B, ne,
+                      nc, int(lanes), out)
+    return dict(zip(("envs", "threads", "smem", "slots8", "vec"), out))
+
+
+_TABLES: dict = {}  # (iterations, device index) -> momentum table
+
+
+def _momentum_table(iterations: int, a) -> torch.Tensor:
+    """:func:`_momentum` on ``a``'s card, made once: the kernel reads
+    coefficient k in iteration k."""
+    key = (iterations, a.get_device())
+    table = _TABLES.get(key)
+    if table is None:
+        table = _TABLES[key] = torch.tensor(
+            _momentum(iterations) or (0.0,), dtype=torch.float32,
+            device=a.device)
+    return table
+
+
+def _check(a, b, mu, f0, nc: int, nl: int, iterations: int, lanes: bool,
+           rows: str = "grouped"):
     """Validate the kernel's inputs; returns (B, ne)."""
     if a.dim() != 3:
         raise ValueError(f"a must be 3-D, got {tuple(a.shape)}")
+    if rows not in ROWS:
+        raise ValueError(f"rows must be one of {ROWS}, got {rows!r}")
     B, ne = (a.shape[2], a.shape[0]) if lanes else (a.shape[0], a.shape[1])
     if ne != 3 * nc + nl or nc < 0 or nl < 0:
         raise ValueError(f"ne={ne} != 3*nc + nl = {3 * nc + nl}")
@@ -155,62 +191,79 @@ def _check(a, b, mu, f0, nc: int, nl: int, iterations: int, lanes: bool):
     tensors = (("a", a, a_shape), ("b", b, vec), ("mu", mu, mshape),
                ("f0", f0, vec))
     for name, x, shape in tensors:
-        if tuple(x.shape) != shape:
+        if x.shape != shape:
             raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
-        want = (torch.float32, torch.bfloat16) if name == "a" else (torch.float32,)
-        if x.dtype not in want:
+        if x.dtype is not torch.float32 and (
+                name != "a" or x.dtype is not torch.bfloat16):
+            want = (torch.float32, torch.bfloat16) if name == "a" else (
+                torch.float32,)
             raise TypeError(f"{name}: dtype {x.dtype}, expected one of {want}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, x, _ in tensors:
-        if x.device != a.device or x.device.type != "cuda":
-            raise ValueError(f"{name} is on {x.device}; the kernel needs "
-                             f"all inputs on one CUDA device")
+    # the cheap form of "all on one CUDA device" (this runs every call)
+    if not (a.is_cuda and b.is_cuda and mu.is_cuda and f0.is_cuda
+            and a.get_device() == b.get_device() == mu.get_device()
+            == f0.get_device()):
+        on = ", ".join(f"{n} on {x.device}" for n, x, _ in tensors)
+        raise ValueError(f"{on}; the kernel needs all inputs on one CUDA "
+                         "device")
     return B, ne
 
 
-def _launch(a, b, mu, f0, out, B: int, ne: int, nc: int, iterations: int,
-            lanes: bool):
-    """Launch on the current stream; inputs are contiguous (``_check``), so
-    the element strides follow from the layout."""
-    load_kernel()
-    if lanes:   # a (ne, ne, B); b, f0, out (ne, B); mu (nc, B)
-        strides = (1, ne * B, B, 1, B, 1, B)
-    else:       # a (B, ne, ne); b, f0, out (B, ne); mu (B, nc)
-        strides = (ne * ne, ne, 1, ne, 1, nc, 1)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
+def _solve(a, b, mu, f0, iterations: int, nc: int, nl: int, lanes: bool,
+           rows: str):
+    """Check, allocate the output and launch on the current stream: one
+    kernel launch and nothing else (the momentum table is made once per
+    iteration count and device)."""
+    B, ne = _check(a, b, mu, f0, nc, nl, iterations, lanes, rows)
+    out = torch.empty((ne, B) if lanes else (B, ne), dtype=torch.float32,
+                      device=a.device)
+    if not _LIB:
+        load_kernel()
+    # element strides of b, f0, out and of mu; inputs are contiguous
+    strides = (1, B, 1, B) if lanes else (ne, 1, nc, 1)
     err = _LIB[0].apgd_launch(
-        a.data_ptr(), int(a.dtype == torch.bfloat16), b.data_ptr(),
-        mu.data_ptr(), f0.data_ptr(), out.data_ptr(), B, ne, nc, iterations,
-        *strides, stream)
+        a.data_ptr(), a.dtype is torch.bfloat16, b.data_ptr(),
+        mu.data_ptr(), f0.data_ptr(), out.data_ptr(),
+        _momentum_table(iterations, a).data_ptr(), B, ne, nc, iterations,
+        lanes, rows == "interleaved", *strides,
+        torch._C._cuda_getCurrentRawStream(a.get_device()))
     if err != 0:
         raise RuntimeError(f"apgd kernel launch failed: cudaError {err}")
+    return out
 
 
-def apgd_solve(a, b, mu, f0, *, iterations: int, nc: int, nl: int):
-    """Batched APGD in the grouped layout, batch-major: a (B, ne, ne) f32 or
-    bf16; b, f0 (B, ne) f32; mu (B, nc) f32 → f (B, ne) f32.  Replaces
-    ``deepmimic_mujoco_tpu/ops/apgd.py:apgd_solve`` (``_apgd_kernel``)."""
-    if a.device.type == "cpu":
-        return _apgd_grouped(a, b, mu, f0, iterations=iterations, nc=nc, nl=nl)
-    B, ne = _check(a, b, mu, f0, nc, nl, iterations, lanes=False)
-    out = torch.empty((B, ne), dtype=torch.float32, device=a.device)
-    _launch(a, b, mu, f0, out, B, ne, nc, iterations, lanes=False)
+def _plain(rows: str):
+    """The plain version of the row order ``rows`` (the CPU path)."""
+    if rows not in ROWS:
+        raise ValueError(f"rows must be one of {ROWS}, got {rows!r}")
+    return _apgd_scan if rows == "interleaved" else _apgd_grouped
+
+
+def apgd_solve(a, b, mu, f0, *, iterations: int, nc: int, nl: int,
+               rows: str = "grouped"):
+    """Batched APGD, batch-major: a (B, ne, ne) f32 or bf16; b, f0 (B, ne)
+    f32; mu (B, nc) f32 → f (B, ne) f32, rows in the grouped layout (the
+    contract of ``deepmimic_mujoco_tpu/ops/apgd.py:apgd_solve``, whose
+    ``_apgd_kernel`` this replaces) or, with ``rows="interleaved"``, in the
+    solver's."""
+    if a.is_cpu:
+        return _plain(rows)(a, b, mu, f0, iterations=iterations, nc=nc, nl=nl)
+    out = _solve(a, b, mu, f0, iterations, nc, nl, False, rows)
     apgd_solve.launches += 1
     return out
 
 
-def apgd_solve_lanes(a, b, mu, f0, *, iterations: int, nc: int, nl: int):
-    """Batched APGD in the grouped layout, env axis last: a (ne, ne, B) f32
-    or bf16; b, f0 (ne, B) f32; mu (nc, B) f32 → f (ne, B) f32.  Replaces
-    ``deepmimic_mujoco_tpu/ops/apgd.py:apgd_solve_lanes``
-    (``_apgd_kernel_lanes``)."""
-    if a.device.type == "cpu":
-        return _apgd_grouped(a.permute(2, 0, 1), b.T, mu.T, f0.T,
-                             iterations=iterations, nc=nc, nl=nl).T
-    B, ne = _check(a, b, mu, f0, nc, nl, iterations, lanes=True)
-    out = torch.empty((ne, B), dtype=torch.float32, device=a.device)
-    _launch(a, b, mu, f0, out, B, ne, nc, iterations, lanes=True)
+def apgd_solve_lanes(a, b, mu, f0, *, iterations: int, nc: int, nl: int,
+                     rows: str = "grouped"):
+    """Batched APGD, env axis last: a (ne, ne, B) f32 or bf16; b, f0 (ne, B)
+    f32; mu (nc, B) f32 → f (ne, B) f32, rows grouped (the contract of
+    ``deepmimic_mujoco_tpu/ops/apgd.py:apgd_solve_lanes``, whose
+    ``_apgd_kernel_lanes`` this replaces) or interleaved."""
+    if a.is_cpu:
+        return _plain(rows)(a.permute(2, 0, 1), b.T, mu.T, f0.T,
+                            iterations=iterations, nc=nc, nl=nl).T
+    out = _solve(a, b, mu, f0, iterations, nc, nl, True, rows)
     apgd_solve_lanes.launches += 1
     return out
 
@@ -222,21 +275,16 @@ apgd_solve_lanes.launches = 0
 def apgd(a, b, mu, f0, *, iterations: int, nc: int, nl: int,
          layout: str = "blocks"):
     """The solver's dispatch: interleaved batch-first a (B, ne, ne), b, f0
-    (B, ne), mu (B, nc) → f (B, ne).  The entry point of ``layout`` runs the
-    kernel for CUDA tensors and the plain version for CPU tensors."""
-    perm, inv = _perm_tensors(nc, nl, a.device)
-    a_g = a[:, perm[:, None], perm[None, :]]
-    b_g = b[:, perm]
-    f0_g = f0[:, perm]
-    mu = mu.contiguous()
-    kw = dict(iterations=iterations, nc=nc, nl=nl)
+    (B, ne), mu (B, nc) → f (B, ne).  ``blocks`` hands the tensors to
+    :func:`apgd_solve` as they are (one kernel launch on contiguous
+    inputs); ``lanes`` transposes them for :func:`apgd_solve_lanes`.  CPU
+    tensors take the plain version."""
+    kw = dict(iterations=iterations, nc=nc, nl=nl, rows="interleaved")
     if layout == "blocks":
-        f = apgd_solve(a_g.contiguous(), b_g.contiguous(), mu,
-                       f0_g.contiguous(), **kw)
-    elif layout == "lanes":
-        f = apgd_solve_lanes(a_g.permute(1, 2, 0).contiguous(),
-                             b_g.T.contiguous(), mu.T.contiguous(),
-                             f0_g.T.contiguous(), **kw).T
-    else:
-        raise ValueError(f"unknown apgd layout {layout!r}")
-    return f[:, inv]
+        return apgd_solve(a.contiguous(), b.contiguous(), mu.contiguous(),
+                          f0.contiguous(), **kw)
+    if layout == "lanes":
+        return apgd_solve_lanes(a.permute(1, 2, 0).contiguous(),
+                                b.T.contiguous(), mu.T.contiguous(),
+                                f0.T.contiguous(), **kw).T
+    raise ValueError(f"unknown apgd layout {layout!r}")

@@ -18,6 +18,7 @@ from deepmimic_mujoco_torch.envs.dp_env_v3 import DPEnvV3
 from deepmimic_mujoco_torch.io_utils import checkpoint
 from deepmimic_mujoco_torch.models.policy import MlpPolicy
 from deepmimic_mujoco_torch.ops import apgd as ops
+from deepmimic_mujoco_torch.ops import timing
 from deepmimic_mujoco_torch.physics.humanoid import build_humanoid
 
 pytestmark = pytest.mark.cuda
@@ -49,28 +50,58 @@ def _lanes(x):
     return x.permute(*range(1, x.dim()), 0).contiguous()
 
 
-@pytest.mark.parametrize("a_dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-@pytest.mark.parametrize("B,nc,nl", [(37, 3, 2), (4096, 8, 8)],
-                         ids=["small", "full"])
-def test_kernels_match_plain(cuda, B, nc, nl, a_dtype):
-    a, b, mu, f0 = _problem(B, nc, nl, a_dtype, seed=B)
-    for iters in (8, 15, 60):
-        kw = dict(iterations=iters, nc=nc, nl=nl)
-        ref = ops._apgd_grouped(a, b, mu, f0, **kw)
-        out = ops.apgd_solve(a, b, mu, f0, **kw)
-        out_l = ops.apgd_solve_lanes(_lanes(a), _lanes(b), _lanes(mu),
-                                     _lanes(f0), **kw).T
-        torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
-        torch.testing.assert_close(out_l, ref, atol=ATOL, rtol=0)
-
-
 def test_dispatch_matches_plain_oracle(cuda):
     a, b, mu, f0 = _problem(300, 8, 8, torch.bfloat16, seed=1)
     ref = ops._apgd_scan(a, b, mu, f0, iterations=15, nc=8, nl=8)
     for layout in ("blocks", "lanes"):
         out = ops.apgd(a, b, mu, f0, iterations=15, nc=8, nl=8, layout=layout)
         torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("a_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,nc,nl", [
+    (37, 3, 2),     # a batch that is no multiple of any block
+    (4096, 8, 8),   # the main path's shape
+    (37, 10, 2),    # nc > 8: the general slot map, projection in shared memory
+    (64, 2, 20),    # nl > 8: the same
+    (37, 0, 5),     # limits only
+    (4097, 8, 0),   # contacts only; rows of A not 16-byte aligned (lanes)
+], ids=["small", "full", "nc10-nl2", "nc2-nl20", "nc0-nl5", "nc8-nl0-B4097"])
+@pytest.mark.parametrize("rows", ["grouped", "interleaved"])
+def test_kernels_match_plain(cuda, B, nc, nl, a_dtype, rows):
+    a, b, mu, f0 = _problem(B, nc, nl, a_dtype, seed=B)
+    plain = ops._apgd_scan if rows == "interleaved" else ops._apgd_grouped
+    for iters in (8, 15, 60):
+        kw = dict(iterations=iters, nc=nc, nl=nl)
+        ref = plain(a, b, mu, f0, **kw)
+        out = ops.apgd_solve(a, b, mu, f0, rows=rows, **kw)
+        out_l = ops.apgd_solve_lanes(_lanes(a), _lanes(b), _lanes(mu),
+                                     _lanes(f0), rows=rows, **kw).T
+        torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+        torch.testing.assert_close(out_l, ref, atol=ATOL, rtol=0)
+
+
+def test_dispatch_launches_one_kernel_per_solve(cuda):
+    """``apgd(..., layout="blocks")`` on the solver's tensors is the kernel
+    launch and nothing else: no gather of A, no copy, no scatter of f.  The
+    wrapper's count is exact; a profiler window may miss a kernel's record,
+    so the device side is read from the best of three windows."""
+    a, b, mu, f0 = _problem(512, 8, 8, torch.bfloat16, seed=4)
+
+    def step():
+        for iters in (15, 8, 8, 8):
+            ops.apgd(a, b, mu, f0, iterations=iters, nc=8, nl=8)
+
+    step()  # build, momentum tables
+    seen = []
+    for _ in range(3):
+        n0 = ops.apgd_solve.launches
+        names = timing.device_kernels(step)
+        assert ops.apgd_solve.launches - n0 == 4
+        assert all("apgd_kernel" in n for n in names), names
+        seen.append(len(names))
+    assert max(seen) == 4, seen
 
 
 def test_wrappers_count_launches_and_refuse_what_the_kernel_cannot_take(cuda):
