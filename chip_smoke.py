@@ -8,8 +8,9 @@ Run from the repository root on a machine with one CUDA card:
 Phases, each printing its lines before the last:
 
 1. device — the card's name and power limit, as ``nvidia-smi`` prints them;
-2. build  — compiles ``ops/csrc/apgd.cu`` with nvcc; prints the seconds and
-   each instantiation's registers, spills and static shared memory
+2. build  — compiles ``ops/csrc/apgd.cu`` and ``ops/csrc/apgd_wide.cu``
+   with nvcc, one process per source started together; prints the seconds
+   and each instantiation's registers, spills and static shared memory
    (``-Xptxas -v``);
 3. kernel — both APGD entry points (``apgd_solve``: (B, ne, ne);
    ``apgd_solve_lanes``: (ne, ne, B)) against the plain PyTorch version on
@@ -24,11 +25,26 @@ Phases, each printing its lines before the last:
    solves (15 + 8 + 8 + 8 iterations) through ``apgd()`` in each layout:
    ``ms`` is CUDA events around 200 launches made from Python (what a
    caller sees), and ``device_ms`` the same launches replayed from a CUDA
-   graph (the device time alone, also at 0 and 60 iterations);
+   graph (the device time alone, also at 0 and 60 iterations); then the
+   wide kernel (``apgd_solve_wide``, ne > 32) against the plain version at
+   B = 4096, ne = 64 (16/16 caps) and 139 (uncapped), f32 and bf16 A, and
+   its ``ms``, ``device_ms`` and bound; then [caps]: 16 envs × 20 steps of
+   the humanoid with 16/16 caps and uncapped on the card, every solve
+   through the wide kernel (counted; ``_apgd_scan`` not called), held
+   against the same rollouts on the CPU;
 4. main path — ``cli.train_trpo --task evaluate`` of the bundled walk
    checkpoint at 4096 and 768 envs × 200 steps, once per kernel layout,
    with the launch counts set to 0 just before each run and read just after,
-   before any profiler session; then profiler windows of one env step's
+   before any profiler session; then [train], also before any profiler
+   session: ``TRPO.iteration`` at 768 and 4096 envs × 64 steps, g_step 1
+   (bench.py's configuration; one warm-up and 2 timed iterations each,
+   the counts set to 0 just before the timed ones): env-steps/s, the time
+   of the rollout, the policy update and the vf epochs, APGD launches per
+   env step (4), meankl ≤ 1.5·max_kl and finite stats; one
+   ``_segment_update`` on the card against the CPU from the same segment;
+   and ``python -m deepmimic_mujoco_torch.cli.train_trpo --task train
+   --num-iters 2`` at 768 envs, whose checkpoint must read back; then
+   profiler windows of one env step's
    four solves through ``apgd()`` (blocks: four kernels and nothing else),
    and a ``torch.profiler`` window of 5 env steps at 4096 envs (step time,
    device busy share, kernel launches per step, the solve's device time and
@@ -65,14 +81,20 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM
 F32_FLOPS_PER_S = 67e12      # H100 SXM, f32 without tensor cores
 
 
-def _problem(torch, B: int, a_dtype, gen):
-    """Well-conditioned dual systems in the grouped layout, batch-major."""
+WIDE = ((16, 16), (37, 28))  # (nc, nl): 16/16 caps (ne 64), uncapped (139)
+TRAIN_HORIZON = 64           # bench.py's TRPO configuration: g_step 1
+MAX_KL = 0.01                # TRPOConfig's default
+
+
+def _problem(torch, B: int, a_dtype, gen, nc: int = NC, nl: int = NL):
+    """Well-conditioned dual systems, batch-major (any row order)."""
     dev = "cuda"
-    m = torch.randn((B, NE, NE), generator=gen, device=dev)
-    a = (m @ m.transpose(1, 2)) / NE + 0.5 * torch.eye(NE, device=dev)
-    b = torch.randn((B, NE), generator=gen, device=dev)
-    mu = 0.5 + torch.rand((B, NC), generator=gen, device=dev)
-    f0 = 0.1 * torch.randn((B, NE), generator=gen, device=dev)
+    ne = 3 * nc + nl
+    m = torch.randn((B, ne, ne), generator=gen, device=dev)
+    a = (m @ m.transpose(1, 2)) / ne + 0.5 * torch.eye(ne, device=dev)
+    b = torch.randn((B, ne), generator=gen, device=dev)
+    mu = 0.5 + torch.rand((B, nc), generator=gen, device=dev)
+    f0 = 0.1 * torch.randn((B, ne), generator=gen, device=dev)
     return a.to(a_dtype).contiguous(), b, mu, f0
 
 
@@ -83,8 +105,12 @@ def _ptxas(log: str) -> dict:
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            name = (("bf16" if "13__nv_bfloat16" in m.group(1) else "f32")
-                    + ("/slots8" if "Lb1E" in m.group(1) else "/general"))
+            dtype = "bf16" if "13__nv_bfloat16" in m.group(1) else "f32"
+            if "apgd_wide_kernel" in m.group(1):
+                name = "wide/" + dtype
+            else:
+                name = dtype + ("/slots8" if "Lb1E" in m.group(1)
+                                else "/general")
             out[name] = {}
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m and name:
@@ -97,12 +123,13 @@ def _ptxas(log: str) -> dict:
     return out
 
 
-def _bound(B: int, iters: int):
-    """Least time of one solve with bf16 A on an H100 SXM: its bytes (A, b,
-    mu, f0, f each once) over HBM rate against its matvec flops over the f32
-    rate."""
-    nbytes = B * NE * NE * 2 + 4 * B * (3 * NE + NC)
-    flops = 2 * B * NE * NE * iters
+def _bound(B: int, iters: int, nc: int = NC, nl: int = NL, es: int = 2):
+    """Least time of one solve on an H100 SXM, A of ``es`` bytes an
+    element: its bytes (A, b, mu, f0, f each once) over HBM rate against
+    its matvec flops over the f32 rate."""
+    ne = 3 * nc + nl
+    nbytes = B * ne * ne * es + 4 * B * (3 * ne + nc)
+    flops = 2 * B * ne * ne * iters
     t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
@@ -124,6 +151,335 @@ def _capture(solver, runner, env, policy, params, state, steps):
     finally:
         solver.apgd = dispatch
     return seen
+
+
+def _wide_kernel(torch, ops, timing) -> dict:
+    """[kernel] the wide kernel (ne > 32) against the plain version at
+    B = 4096 for each shape of ``WIDE``, f32 and bf16 A, 15/8/60
+    iterations; then its time at 15 iterations: ``ms`` from Python (CUDA
+    events around 50 launches), ``device_ms`` from a CUDA graph."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    out = {}
+    for nc, nl in WIDE:
+        ne = 3 * nc + nl
+        rec = {"max_abs_err": 0.0}
+        for a_dtype in (torch.float32, torch.bfloat16):
+            a, b, mu, f0 = _problem(torch, B_MAIN, a_dtype, gen, nc, nl)
+            for iters in (15, 8, 60):
+                kw = dict(iterations=iters, nc=nc, nl=nl)
+                ref = ops._apgd_scan(a, b, mu, f0, **kw)
+                got = ops.apgd_solve_wide(a, b, mu, f0, **kw)
+                torch.cuda.synchronize()
+                e = float((got - ref).abs().max())
+                rec["max_abs_err"] = max(rec["max_abs_err"], e)
+                print(f"[kernel] apgd_solve_wide ne={ne} (nc {nc}, nl {nl}) "
+                      f"A={str(a_dtype)[6:]} iters={iters}: max_abs_err "
+                      f"{e:.3e} (|ref| max {float(ref.abs().max()):.3f}, "
+                      f"atol {ATOL})")
+                if not e <= ATOL:
+                    raise AssertionError(f"apgd_solve_wide ne={ne} disagrees "
+                                         f"with the plain version: {e}")
+            kw = dict(iterations=15, nc=nc, nl=nl)
+            es = 2 if a_dtype is torch.bfloat16 else 4
+            ms = timing.eager_ms(
+                lambda: ops.apgd_solve_wide(a, b, mu, f0, **kw), 50)
+            dev = timing.graph_ms(
+                lambda: ops.apgd_solve_wide(a, b, mu, f0, **kw), calls=20,
+                replays=2)
+            plain_ms = timing.eager_ms(
+                lambda: ops._apgd_scan(a, b, mu, f0, **kw), 5)
+            bound_s, bound_by = _bound(B_MAIN, 15, nc, nl, es)
+            smem = ops.wide_smem_bytes(ne, es == 2)
+            rec[str(a_dtype)[6:]] = {
+                "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
+                "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+                "smem_bytes": smem}
+            print(f"[kernel] apgd_solve_wide B={B_MAIN} ne={ne} "
+                  f"{str(a_dtype)[6:]} iters=15: {ms:.4f} ms (CUDA events "
+                  f"over 50 launches from Python), device {dev:.4f} ms (CUDA "
+                  f"graph), plain {plain_ms:.4f} ms, bound "
+                  f"{bound_s * 1e3:.4f} ms ({bound_by}), {smem} B shared "
+                  "memory per block, library call: none")
+        out[ne] = rec
+    return out
+
+
+def _zero_counts(ops) -> None:
+    for fn in (ops.apgd_solve, ops.apgd_solve_lanes, ops.apgd_solve_wide):
+        fn.launches = 0
+
+
+def _counts(ops) -> dict:
+    return {fn.__name__: fn.launches for fn in (
+        ops.apgd_solve, ops.apgd_solve_lanes, ops.apgd_solve_wide)}
+
+
+def _larger_caps(torch, ops, steps: int = 20) -> int:
+    """[caps] 16 envs x ``steps`` steps of the humanoid with 16/16 caps
+    (ne = 64) and uncapped (ne = 139), bundled checkpoint: on the card every
+    solve goes to the wide kernel (4 per step; ``_apgd_scan`` is not
+    called), held against the same rollout on the CPU (plain versions).
+    Returns the wide kernel's launches."""
+    from deepmimic_mujoco_torch.algos import runner
+    from deepmimic_mujoco_torch.envs.dp_env_v3 import DPEnvV3
+    from deepmimic_mujoco_torch.io_utils import checkpoint
+    from deepmimic_mujoco_torch.models.policy import MlpPolicy
+    from deepmimic_mujoco_torch.physics.humanoid import build_humanoid
+
+    idx = torch.arange(16) * 2 % 39
+    launches = 0
+    for caps, label in ((16, "caps 16/16, ne 64"),
+                        (1 << 30, "uncapped, ne 139")):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            env = DPEnvV3(model=build_humanoid(contact_cap=caps,
+                                               limit_cap=caps, device=dev))
+            policy = MlpPolicy(ob_dim=56, ac_dim=28)
+            params = checkpoint.load_trpo_params(CKPT, policy, dev)
+            state = env.reset_at(idx)
+            if dev == "cpu":
+                out[dev] = runner.rollout(env, policy, params, state, steps)
+                continue
+            plain, scans = ops._apgd_scan, []
+
+            def spy(*args, **kw):
+                scans.append(1)
+                return plain(*args, **kw)
+
+            ops._apgd_scan = spy
+            _zero_counts(ops)
+            try:
+                out[dev] = runner.rollout(env, policy, params, state, steps)
+                torch.cuda.synchronize()
+            finally:
+                ops._apgd_scan = plain
+            n = _counts(ops)
+            want = {"apgd_solve": 0, "apgd_solve_lanes": 0,
+                    "apgd_solve_wide": 4 * steps}
+            if n != want or scans:
+                raise AssertionError(f"{label}: launches {n}, expected "
+                                     f"{want}; _apgd_scan called "
+                                     f"{len(scans)} times")
+            launches += n["apgd_solve_wide"]
+        d_q = float((out["cuda"].state.qpos.cpu()
+                     - out["cpu"].state.qpos).abs().max())
+        same_len = bool((out["cuda"].ep_len.cpu() == out["cpu"].ep_len).all())
+        print(f"[caps] {label}: 16 envs x {steps} steps, card vs CPU: qpos "
+              f"max_abs_diff {d_q:.3e} (atol {ROLLOUT_ATOL}), ep_len equal "
+              f"{same_len}; on the card {4 * steps} apgd_solve_wide launches, "
+              "no other APGD launch, _apgd_scan not called")
+        if not (d_q <= ROLLOUT_ATOL and same_len):
+            raise AssertionError(f"{label}: the card's rollout disagrees "
+                                 "with the CPU's")
+    return launches
+
+
+def _timed(fn, acc: dict, key: str):
+    """``fn`` with its wall time (between two synchronizations) added to
+    ``acc[key]``."""
+    import torch
+
+    def run(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        acc[key] += time.perf_counter() - t0
+        return out
+    return run
+
+
+def _train(torch, ops, n_envs: int, timed_iters: int = 2) -> dict:
+    """[train] ``TRPO.iteration`` at ``n_envs`` envs x 64 steps, g_step 1
+    (bench.py's configuration), from random params: one warm-up iteration,
+    then ``timed_iters`` timed ones, with the launch counts set to 0 just
+    before them and read just after.  Phase times are wall time between
+    synchronizations around the rollout, the policy update (gradient, CG,
+    line search) and the vf epochs."""
+    from collections import deque
+
+    from deepmimic_mujoco_torch.algos.trpo import TRPO, TRPOConfig
+    from deepmimic_mujoco_torch.envs.dp_env_v3 import DPEnvV3
+    from deepmimic_mujoco_torch.models.policy import MlpPolicy
+    from deepmimic_mujoco_torch.physics.humanoid import build_humanoid
+
+    learner = TRPO(DPEnvV3(model=build_humanoid(device="cuda")),
+                   MlpPolicy(ob_dim=56, ac_dim=28),
+                   TRPOConfig(horizon=TRAIN_HORIZON, num_envs=n_envs,
+                              g_step=1))
+    phase = {"rollout": 0.0, "policy update": 0.0, "vf epochs": 0.0}
+    learner._rollout = _timed(learner._rollout, phase, "rollout")
+    learner._policy_update = _timed(learner._policy_update, phase,
+                                    "policy update")
+    learner._vf_update = _timed(learner._vf_update, phase, "vf epochs")
+    state = learner.init(torch.Generator(device="cuda").manual_seed(SEED))
+    lens: deque = deque(maxlen=40)
+
+    def iterate(state):
+        state, stats = learner.iteration(state)
+        ended = stats.ep_lens.reshape(-1)
+        lens.extend(int(x) for x in ended[ended > 0].cpu())
+        return state, stats
+
+    state, _ = iterate(state)  # warm-up
+    for k in phase:
+        phase[k] = 0.0
+    _zero_counts(ops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed_iters):
+        state, stats = iterate(state)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = _counts(ops)
+    steps = timed_iters * TRAIN_HORIZON
+    rec = {k: float(getattr(stats, k)) for k in (
+        "meankl", "surrgain", "ev_tdlam_before", "optimgain", "entropy")}
+    rec["EpLenMean"] = sum(lens) / len(lens) if lens else float("nan")
+    rec.update(env_steps_per_s=n_envs * steps / dt,
+               iteration_s=dt / timed_iters,
+               phase_s={k: v / timed_iters for k, v in phase.items()},
+               apgd_launches_per_env_step=n["apgd_solve"] / steps,
+               launches=n)
+    print(f"[train] TRPO.iteration {n_envs} envs x {TRAIN_HORIZON} steps, "
+          f"g_step 1, {timed_iters} timed after 1 warm-up: "
+          f"{rec['env_steps_per_s']:.1f} env-steps/s, "
+          f"{rec['iteration_s']:.3f} s per iteration ("
+          + ", ".join(f"{k} {v:.3f} s" for k, v in rec["phase_s"].items())
+          + f"); APGD launches per env step "
+          f"{rec['apgd_launches_per_env_step']:.2f} ({n}); meankl "
+          f"{rec['meankl']:.5f}, surrgain {rec['surrgain']:.5f}, "
+          f"ev_tdlam_before {rec['ev_tdlam_before']:.4f}, EpLenMean "
+          f"{rec['EpLenMean']:.2f}")
+    finite = all(v == v and abs(v) != float("inf") for k, v in rec.items()
+                 if k in ("meankl", "surrgain", "ev_tdlam_before",
+                          "optimgain", "entropy", "EpLenMean"))
+    if not (finite and rec["meankl"] <= 1.5 * MAX_KL):
+        raise AssertionError(f"[train] {n_envs} envs: stats {rec}")
+    if n != {"apgd_solve": 4 * steps, "apgd_solve_lanes": 0,
+             "apgd_solve_wide": 0}:
+        raise AssertionError(f"[train] {n_envs} envs: APGD launches {n}, "
+                             f"expected 4 per env step ({4 * steps})")
+    return rec
+
+
+def _segment_card_vs_cpu(torch) -> dict:
+    """[train] one ``_segment_update`` on the card against the CPU, from the
+    same 16-env x 32-step segment (a rollout on the card), permutations and
+    params; TF32 is off (PyTorch's default for matmul)."""
+    from deepmimic_mujoco_torch.algos import adam
+    from deepmimic_mujoco_torch.algos.trpo import (TRPO, Draws, TRPOConfig,
+                                                   flatten, policy_leaves,
+                                                   vf_leaves)
+    from deepmimic_mujoco_torch.envs.dp_env_v3 import DPEnvV3
+    from deepmimic_mujoco_torch.models.policy import MlpPolicy
+    from deepmimic_mujoco_torch.physics.humanoid import build_humanoid
+
+    B, T = 16, 32
+    gen = torch.Generator().manual_seed(SEED)
+    policy = MlpPolicy(ob_dim=56, ac_dim=28)
+    params_cpu = policy.init(gen, "cpu")
+    perms = torch.stack([torch.randperm(B * T, generator=gen)
+                         for _ in range(3)])
+
+    class FixedPerms(Draws):
+        def vf_permutations(self, n, epochs, device):
+            return perms.to(device)
+
+    res = {}
+    for dev in ("cuda", "cpu"):
+        learner = TRPO(DPEnvV3(model=build_humanoid(device=dev)), policy,
+                       TRPOConfig(horizon=T, num_envs=B))
+        params = {
+            "pol": [{k: x.to(dev) for k, x in layer.items()}
+                    for layer in params_cpu["pol"]],
+            "vf": [{k: x.to(dev) for k, x in layer.items()}
+                   for layer in params_cpu["vf"]],
+            "logstd": params_cpu["logstd"].to(dev),
+            "ob_rms": type(params_cpu["ob_rms"])(
+                *(x.to(dev) for x in params_cpu["ob_rms"]))}
+        if dev == "cuda":
+            g = torch.Generator(device="cuda").manual_seed(SEED)
+            seg = learner._rollout(
+                params, learner.env.reset(g, B),
+                torch.ones(B, dtype=torch.bool, device="cuda"), Draws(g),
+                torch.zeros(B, device="cuda"),
+                torch.zeros(B, dtype=torch.int32, device="cuda"))[0]
+        n_vf = sum(x.numel() for x in vf_leaves(params))
+        out = learner._segment_update(
+            params, adam.init(n_vf, dev),
+            {k: v.to(dev) for k, v in seg.items()}, FixedPerms(None))
+        res[dev] = tuple(x.cpu() if isinstance(x, torch.Tensor) else x
+                         for x in out[:4]) + (out[4],)
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+    (pc, ac, lc, ec, ic), (pp, ap, lp, ep, ip) = res["cuda"], res["cpu"]
+    d = {"pol": rel(flatten(policy_leaves(pc)).cpu(),
+                    flatten(policy_leaves(pp))),
+         "vf": rel(flatten(vf_leaves(pc)).cpu(), flatten(vf_leaves(pp))),
+         "ob_rms": max(rel(x.cpu(), y) for x, y in zip(pc["ob_rms"],
+                                                       pp["ob_rms"])),
+         "adam_m": rel(ac.m.cpu(), ap.m), "losses": rel(lc, lp),
+         "ev": rel(ec, ep)}
+    bounds = {"pol": 1e-4, "vf": 1e-3, "ob_rms": 1e-5, "adam_m": 1e-3,
+              "losses": 1e-4, "ev": 1e-4}
+    print(f"[train] one _segment_update from a {B}-env x {T}-step segment, "
+          f"card vs CPU: max diff / max(1, max|x|): " + ", ".join(
+              f"{k} {v:.3e} (bound {bounds[k]:.0e})" for k, v in d.items())
+          + f"; step size {ic.stepsize} / {ip.stepsize}, accepted "
+          f"{ic.accepted} / {ip.accepted}")
+    if not (all(d[k] <= bounds[k] for k in d)
+            and (ic.stepsize, ic.accepted) == (ip.stepsize, ip.accepted)):
+        raise AssertionError("[train] the card's segment update disagrees "
+                             "with the CPU's")
+    return d
+
+
+def _train_cli(n_envs: int = 768) -> None:
+    """[train] ``python -m deepmimic_mujoco_torch.cli.train_trpo --task train
+    --num-iters 2`` at ``n_envs`` envs (64 steps, g_step 1) into a temporary
+    directory; the checkpoint it writes reads back through
+    ``load_trpo_params``."""
+    import tempfile
+
+    import torch
+
+    from deepmimic_mujoco_torch.io_utils import checkpoint
+    from deepmimic_mujoco_torch.models.policy import MlpPolicy
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "deepmimic_mujoco_torch.cli.train_trpo",
+               "--task", "train", "--num-iters", "2", "--num-envs",
+               str(n_envs), "--timesteps-per-batch", str(TRAIN_HORIZON),
+               "--g-step", "1", "--seed", str(SEED),
+               "--log-dir", os.path.join(tmp, "logs"),
+               "--checkpoint-dir", os.path.join(tmp, "ckpt")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                              timeout=400, check=False)
+        dt = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(proc.stdout[-3000:], proc.stderr[-3000:], file=sys.stderr)
+            raise AssertionError(f"the training CLI exited {proc.returncode}")
+        run = os.path.join("DPEnvV3", "trpo-walk-0")
+        with open(os.path.join(tmp, "logs", run, "progress.csv")) as fh:
+            rows = fh.read().strip().splitlines()
+        path = os.path.join(tmp, "ckpt", run, "trpo_state.npz")
+        params = checkpoint.load_trpo_params(path, MlpPolicy(56, 28), "cuda")
+        finite = all(bool(torch.isfinite(x).all()) for x in
+                     [params["logstd"]] + [layer["w"] for layer in
+                                           params["pol"] + params["vf"]])
+        last = dict(zip(rows[0].split(","), rows[-1].split(",")))
+        print(f"[train] CLI --task train --num-iters 2 at {n_envs} envs: exit "
+              f"0 in {dt:.1f} s (process start and imports included), "
+              f"{len(rows) - 1} progress rows, last meankl {last['meankl']} "
+              f"EpLenMean {last['EpLenMean']}; its checkpoint reads back "
+              f"through load_trpo_params, finite {finite}")
+        if len(rows) != 3 or not finite:
+            raise AssertionError("[train] the CLI's log or checkpoint is off")
 
 
 def main() -> int:
@@ -149,16 +505,24 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])  # name, power limit
 
-    # 2. build
-    built = ops.load_kernel()
-    ptxas = _ptxas(built.log)
-    how = f"{built.seconds:.1f} s" if built.seconds else "reused"
-    print(f"[build] {os.path.basename(built.path)}: nvcc {how}; " + "; ".join(
-        f"{k}: {v.get('registers')} registers, {v.get('spill_bytes')} spill "
-        f"bytes, {v.get('static_smem')} B static smem"
-        for k, v in sorted(ptxas.items())))
+    # 2. build: one nvcc per source, started together
+    t0 = time.perf_counter()
+    builds = ops.load_kernels(("apgd", "apgd_wide"))
+    print(f"[build] both sources in {time.perf_counter() - t0:.1f} s of wall "
+          "time")
+    ptxas = {}
+    for built in builds.values():
+        found = _ptxas(built.log)
+        ptxas.update(found)
+        how = f"{built.seconds:.1f} s" if built.seconds else "reused"
+        print(f"[build] {os.path.basename(built.path)}: nvcc {how}; "
+              + "; ".join(
+                  f"{k}: {v.get('registers')} registers, "
+                  f"{v.get('spill_bytes')} spill bytes, "
+                  f"{v.get('static_smem')} B static smem"
+                  for k, v in sorted(found.items())))
     if sorted(ptxas) != ["bf16/general", "bf16/slots8", "f32/general",
-                         "f32/slots8"]:
+                         "f32/slots8", "wide/bf16", "wide/f32"]:
         raise AssertionError(f"ptxas reported {sorted(ptxas)}")
 
     # 3. kernel against plain, then timing at the main path's shape
@@ -302,6 +666,11 @@ def main() -> int:
               f"{plain_ms:.4f} ms, bound {step_bound * 1e3:.4f} ms (bytes, "
               f"4 solves)")
 
+    # the wide kernel (ne > 32) against the plain version, its time, and
+    # the larger-caps paths that run it (counts set to 0 before each)
+    wide = _wide_kernel(torch, ops, timing)
+    wide_launches = _larger_caps(torch, ops)
+
     # 4. main path, before any profiler session: after the profiler has
     # traced the card, later kernel launches of the process can cost more
     # host time (the rerun after the [profile] phase shows whether they do)
@@ -338,6 +707,15 @@ def main() -> int:
     for n_envs in (B_MAIN, 768):
         for layout in ("blocks", "lanes"):
             launches[dispatch_of[layout]] += evaluate(n_envs, layout)
+
+    # training: TRPO.iteration at 768 and 4096 envs, one segment update on
+    # the card against the CPU, and the training CLI; still before any
+    # profiler session
+    train = {n: _train(torch, ops, n) for n in (768, B_MAIN)}
+    launches["apgd_solve"] += sum(r["launches"]["apgd_solve"]
+                                  for r in train.values())
+    seg_diff = _segment_card_vs_cpu(torch)
+    _train_cli()
 
     # one env step's four solves through the dispatch: the wrappers' counts
     # give the launches; profiler windows show what ran on the device (a
@@ -435,6 +813,27 @@ def main() -> int:
             "step_device_ms": step_ms[layout_of[name]][1],
             "step_bound_ms": step_bound * 1e3,
             "ptxas": ptxas})
+    w64, w139 = wide[3 * WIDE[0][0] + WIDE[0][1]], wide[3 * WIDE[1][0]
+                                                        + WIDE[1][1]]
+    kernels.append({
+        "name": "apgd_solve_wide", "route": "cuda",
+        "source": "deepmimic_mujoco_torch/ops/csrc/apgd_wide.cu",
+        # no Pallas kernel computes ne > 32: it replaces make_apgd's XLA
+        # route, _apgd_scan
+        "replaces": "deepmimic_mujoco_tpu/ops/apgd.py:181",
+        "launches": wide_launches,
+        "max_abs_err": max(w64["max_abs_err"], w139["max_abs_err"]),
+        **{k: w64["bfloat16"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by")},
+        "library_ms": None, "shape": "B 4096, ne 64 (16/16 caps), bf16 A, "
+                                     "15 iterations",
+        "device_ms": w64["bfloat16"]["device_ms"],
+        "registers": ptxas["wide/bf16"].get("registers"),
+        "spill_bytes": ptxas["wide/bf16"].get("spill_bytes"),
+        "smem_bytes": w64["bfloat16"]["smem_bytes"],
+        "ne64": w64, "ne139": w139})
+    kernels[0]["train"] = {str(n): r for n, r in train.items()}
+    kernels[0]["train_segment_card_vs_cpu"] = seg_diff
     print(f"[done] {time.perf_counter() - t_start:.1f} s after the imports")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,6 @@ builders never see a half-written file and no lock file is left behind."""
 
 from __future__ import annotations
 
-import ctypes
 import hashlib
 import os
 import shutil
@@ -41,37 +40,43 @@ def nvcc_path() -> str:
     return nvcc
 
 
-def build(name: str) -> Built:
-    """Compile ``csrc/<name>.cu`` unless a library of the same source and
-    flags exists; raise ``RuntimeError`` with nvcc's output if it fails."""
+def _paths(name: str) -> tuple[str, str, str]:
+    """(source, library, log) of ``csrc/<name>.cu`` under the hash of the
+    source and the flags."""
     src = os.path.join(CSRC, name + ".cu")
     with open(src, "rb") as fh:
         digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
-    tag = digest.hexdigest()[:16]
-    lib = os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
-    log_path = lib[:-3] + ".log"
-    if os.path.exists(lib) and os.path.exists(log_path):
-        with open(log_path) as fh:
-            return Built(lib, fh.read(), 0.0)
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
-                          capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(f"nvcc failed on {src}:\n{log}")
-    with open(log_path + f".{os.getpid()}.tmp", "w") as fh:
-        fh.write(log)
-    os.replace(log_path + f".{os.getpid()}.tmp", log_path)
-    os.replace(tmp, lib)
-    return Built(lib, log, seconds)
+    lib = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+    return src, lib, lib[:-3] + ".log"
 
 
-def load(name: str) -> tuple[ctypes.CDLL, Built]:
-    """Build (or reuse) and load ``csrc/<name>.cu``."""
-    built = build(name)
-    return ctypes.CDLL(built.path), built
+def build_many(names) -> dict[str, Built]:
+    """Compile each ``csrc/<name>.cu`` unless a library of the same source
+    and flags exists, one nvcc process per source, all started together;
+    raise ``RuntimeError`` with nvcc's output if one fails."""
+    out, running = {}, {}
+    for name in names:
+        src, lib, log_path = _paths(name)
+        if os.path.exists(lib) and os.path.exists(log_path):
+            with open(log_path) as fh:
+                out[name] = Built(lib, fh.read(), 0.0)
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        proc = subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, time.perf_counter(), src, lib, log_path, tmp)
+    for name, (proc, t0, src, lib, log_path, tmp) in running.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+        with open(log_path + f".{os.getpid()}.tmp", "w") as fh:
+            fh.write(log)
+        os.replace(log_path + f".{os.getpid()}.tmp", log_path)
+        os.replace(tmp, lib)
+        out[name] = Built(lib, log, seconds)
+    return out

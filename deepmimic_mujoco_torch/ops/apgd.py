@@ -1,6 +1,7 @@
-"""Batched APGD friction-cone solve: the hand-written CUDA kernel
-(``csrc/apgd.cu``), its two entry points and their plain PyTorch version
-(port of ``deepmimic_mujoco_tpu/ops/apgd.py``).
+"""Batched APGD friction-cone solve: the hand-written CUDA kernels
+(``csrc/apgd.cu`` for ne <= 32, ``csrc/apgd_wide.cu`` above), their entry
+points and their plain PyTorch version (port of
+``deepmimic_mujoco_tpu/ops/apgd.py``).
 
 Per env the solve takes a dual matrix A (ne×ne, f32 or bf16 storage), b
 (ne), friction μ (nc) and a warm start f0 (ne) and runs Nesterov-accelerated
@@ -16,10 +17,17 @@ to ≥ 0.
   the kernel applies the row order itself.  On a CUDA tensor they launch
   the kernel (and count the launch in ``.launches``); on a CPU tensor they
   compute the plain version; on anything else they raise.
+* :func:`apgd_solve_wide` is the entry point of the kernel for larger
+  dual systems, 1 <= ne <= ``MAX_NE_WIDE`` (the uncapped humanoid has
+  ne = 139), batch-major and interleaved.  It replaces the XLA
+  ``_apgd_scan`` route that ``make_apgd`` takes for every ne; no Pallas
+  kernel computes it.
 * :func:`apgd` is the solver's dispatch (it replaces ``make_apgd``'s
-  ``custom_vmap`` rule): batch-first interleaved tensors in and out, handed
-  to the entry point that ``layout`` names — as they are for ``blocks``
-  (one launch per solve), transposed for ``lanes``.
+  ``custom_vmap`` rule): batch-first interleaved tensors in and out.  The
+  shape chooses the kernel: ne <= 32 goes to the entry point that
+  ``layout`` names — as the tensors are for ``blocks`` (one launch per
+  solve), transposed for ``lanes`` — and ne > 32 to
+  :func:`apgd_solve_wide` whatever the layout.
 * :func:`_apgd_scan` is the plain version in the interleaved layout — the
   CPU tests' and ``chip_smoke.py``'s oracle.
 """
@@ -35,6 +43,7 @@ import torch
 from deepmimic_mujoco_torch.ops import _build
 
 MAX_NE = 32  # the rows map to the 32 slots of two 16-row mma tiles
+MAX_NE_WIDE = 192  # apgd_wide.cu: one thread per row, A in shared memory
 
 
 def _group_perm(nc: int, nl: int) -> tuple[np.ndarray, np.ndarray]:
@@ -123,24 +132,50 @@ def _apgd_scan(a, b, mu, f0, *, iterations: int, nc: int, nl: int):
 # ---------------------------------------------------------------------------
 # the CUDA kernel
 
-_LIB: list = []  # [ctypes.CDLL, _build.Built] once loaded
+_LIBS: dict = {}  # source name -> (ctypes.CDLL, _build.Built) once loaded
 ROWS = ("grouped", "interleaved")
 
 
-def load_kernel() -> _build.Built:
-    """Build (at first use) and bind ``csrc/apgd.cu``; returns the build
-    record (library path, nvcc output, compile seconds)."""
-    if not _LIB:
-        lib, built = _build.load("apgd")
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+def _bind(name: str, lib: ctypes.CDLL) -> None:
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    if name == "apgd":
         lib.apgd_launch.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, ptr, i64,
                                     i32, i32, i32, i32, i32, i64, i64, i64,
                                     i64, ptr]
         lib.apgd_launch.restype = ctypes.c_int
         lib.apgd_plan.argtypes = [ptr, i32, i64, i32, i32, i32, ptr]
         lib.apgd_plan.restype = None
-        _LIB.extend([lib, built])
-    return _LIB[1]
+    else:
+        lib.apgd_wide_launch.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, ptr,
+                                         i64, i32, i32, i32, ptr]
+        lib.apgd_wide_launch.restype = ctypes.c_int
+        lib.apgd_wide_smem.argtypes = [i32, i32]
+        lib.apgd_wide_smem.restype = ctypes.c_int
+        lib.apgd_wide_max_ne.argtypes = []
+        lib.apgd_wide_max_ne.restype = ctypes.c_int
+        if lib.apgd_wide_max_ne() != MAX_NE_WIDE:
+            raise RuntimeError(f"apgd_wide.cu takes ne <= "
+                               f"{lib.apgd_wide_max_ne()}, MAX_NE_WIDE is "
+                               f"{MAX_NE_WIDE}")
+
+
+def load_kernels(names=("apgd", "apgd_wide")) -> dict:
+    """Build (at first use; the sources not built yet compile in parallel)
+    and bind ``csrc/<name>.cu`` for each name; returns name -> build record
+    (library path, nvcc output, compile seconds)."""
+    todo = [n for n in names if n not in _LIBS]
+    if todo:
+        for name, built in _build.build_many(todo).items():
+            lib = ctypes.CDLL(built.path)
+            _bind(name, lib)
+            _LIBS[name] = (lib, built)
+    return {n: _LIBS[n][1] for n in names}
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    if name not in _LIBS:
+        load_kernels((name,))
+    return _LIBS[name][0]
 
 
 def launch_plan(a, nc: int, lanes: bool) -> dict:
@@ -148,11 +183,10 @@ def launch_plan(a, nc: int, lanes: bool) -> dict:
     layout of ``lanes``): envs and threads per block, dynamic shared memory
     bytes, whether the 8-slot map applies and whether A is copied with
     vector loads."""
-    load_kernel()
     B, ne = (a.shape[2], a.shape[0]) if lanes else (a.shape[0], a.shape[1])
     out = (ctypes.c_int * 5)()
-    _LIB[0].apgd_plan(a.data_ptr(), int(a.dtype == torch.bfloat16), B, ne,
-                      nc, int(lanes), out)
+    _lib("apgd").apgd_plan(a.data_ptr(), int(a.dtype == torch.bfloat16), B,
+                           ne, nc, int(lanes), out)
     return dict(zip(("envs", "threads", "smem", "slots8", "vec"), out))
 
 
@@ -172,8 +206,9 @@ def _momentum_table(iterations: int, a) -> torch.Tensor:
 
 
 def _check(a, b, mu, f0, nc: int, nl: int, iterations: int, lanes: bool,
-           rows: str = "grouped"):
-    """Validate the kernel's inputs; returns (B, ne)."""
+           rows: str = "grouped", max_ne: int = MAX_NE,
+           kernel: str = "the kernel"):
+    """Validate a kernel's inputs; returns (B, ne)."""
     if a.dim() != 3:
         raise ValueError(f"a must be 3-D, got {tuple(a.shape)}")
     if rows not in ROWS:
@@ -181,8 +216,8 @@ def _check(a, b, mu, f0, nc: int, nl: int, iterations: int, lanes: bool,
     B, ne = (a.shape[2], a.shape[0]) if lanes else (a.shape[0], a.shape[1])
     if ne != 3 * nc + nl or nc < 0 or nl < 0:
         raise ValueError(f"ne={ne} != 3*nc + nl = {3 * nc + nl}")
-    if ne > MAX_NE or ne < 1:
-        raise ValueError(f"the kernel takes 1 <= ne <= {MAX_NE}, got {ne}")
+    if ne > max_ne or ne < 1:
+        raise ValueError(f"{kernel} takes 1 <= ne <= {max_ne}, got {ne}")
     if iterations < 0:
         raise ValueError(f"iterations must be >= 0, got {iterations}")
     vec = (ne, B) if lanes else (B, ne)
@@ -218,11 +253,9 @@ def _solve(a, b, mu, f0, iterations: int, nc: int, nl: int, lanes: bool,
     B, ne = _check(a, b, mu, f0, nc, nl, iterations, lanes, rows)
     out = torch.empty((ne, B) if lanes else (B, ne), dtype=torch.float32,
                       device=a.device)
-    if not _LIB:
-        load_kernel()
     # element strides of b, f0, out and of mu; inputs are contiguous
     strides = (1, B, 1, B) if lanes else (ne, 1, nc, 1)
-    err = _LIB[0].apgd_launch(
+    err = _lib("apgd").apgd_launch(
         a.data_ptr(), a.dtype is torch.bfloat16, b.data_ptr(),
         mu.data_ptr(), f0.data_ptr(), out.data_ptr(),
         _momentum_table(iterations, a).data_ptr(), B, ne, nc, iterations,
@@ -268,23 +301,56 @@ def apgd_solve_lanes(a, b, mu, f0, *, iterations: int, nc: int, nl: int,
     return out
 
 
+def apgd_solve_wide(a, b, mu, f0, *, iterations: int, nc: int, nl: int):
+    """Batched APGD for dual systems of up to ``MAX_NE_WIDE`` rows,
+    batch-major and interleaved: a (B, ne, ne) f32 or bf16; b, f0 (B, ne)
+    f32; mu (B, nc) f32 → f (B, ne) f32.  The kernel (``csrc/
+    apgd_wide.cu``) computes what ``_apgd_scan`` computes; the dispatch
+    sends it the systems above ``MAX_NE``."""
+    if a.is_cpu:
+        return _apgd_scan(a, b, mu, f0, iterations=iterations, nc=nc, nl=nl)
+    B, ne = _check(a, b, mu, f0, nc, nl, iterations, False, "interleaved",
+                   MAX_NE_WIDE, "the wide kernel (MAX_NE_WIDE)")
+    out = torch.empty((B, ne), dtype=torch.float32, device=a.device)
+    err = _lib("apgd_wide").apgd_wide_launch(
+        a.data_ptr(), a.dtype is torch.bfloat16, b.data_ptr(), mu.data_ptr(),
+        f0.data_ptr(), out.data_ptr(),
+        _momentum_table(iterations, a).data_ptr(), B, ne, nc, iterations,
+        torch._C._cuda_getCurrentRawStream(a.get_device()))
+    if err != 0:
+        raise RuntimeError(f"apgd_wide kernel launch failed: cudaError {err}")
+    apgd_solve_wide.launches += 1
+    return out
+
+
+def wide_smem_bytes(ne: int, bf16: bool) -> int:
+    """Dynamic shared memory of one block of the wide kernel."""
+    return _lib("apgd_wide").apgd_wide_smem(ne, int(bf16))
+
+
 apgd_solve.launches = 0
 apgd_solve_lanes.launches = 0
+apgd_solve_wide.launches = 0
 
 
 def apgd(a, b, mu, f0, *, iterations: int, nc: int, nl: int,
          layout: str = "blocks"):
     """The solver's dispatch: interleaved batch-first a (B, ne, ne), b, f0
-    (B, ne), mu (B, nc) → f (B, ne).  ``blocks`` hands the tensors to
-    :func:`apgd_solve` as they are (one kernel launch on contiguous
-    inputs); ``lanes`` transposes them for :func:`apgd_solve_lanes`.  CPU
-    tensors take the plain version."""
+    (B, ne), mu (B, nc) → f (B, ne).  For ne <= ``MAX_NE``, ``blocks``
+    hands the tensors to :func:`apgd_solve` as they are (one kernel launch
+    on contiguous inputs) and ``lanes`` transposes them for
+    :func:`apgd_solve_lanes`; larger systems go to :func:`apgd_solve_wide`
+    in either layout.  CPU tensors take the plain version."""
+    if layout not in ("blocks", "lanes"):
+        raise ValueError(f"unknown apgd layout {layout!r}")
+    if a.shape[-1] > MAX_NE:
+        return apgd_solve_wide(a.contiguous(), b.contiguous(),
+                               mu.contiguous(), f0.contiguous(),
+                               iterations=iterations, nc=nc, nl=nl)
     kw = dict(iterations=iterations, nc=nc, nl=nl, rows="interleaved")
     if layout == "blocks":
         return apgd_solve(a.contiguous(), b.contiguous(), mu.contiguous(),
                           f0.contiguous(), **kw)
-    if layout == "lanes":
-        return apgd_solve_lanes(a.permute(1, 2, 0).contiguous(),
-                                b.T.contiguous(), mu.T.contiguous(),
-                                f0.T.contiguous(), **kw).T
-    raise ValueError(f"unknown apgd layout {layout!r}")
+    return apgd_solve_lanes(a.permute(1, 2, 0).contiguous(),
+                            b.T.contiguous(), mu.T.contiguous(),
+                            f0.T.contiguous(), **kw).T

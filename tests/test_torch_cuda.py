@@ -1,5 +1,5 @@
-"""Tests of the port that need the card: the APGD kernel against its plain
-PyTorch version, and the main path on CUDA against the CPU.
+"""Tests of the port that need the card: the APGD kernels against their
+plain PyTorch version, and the main path on CUDA against the CPU.
 
 Imports no JAX (the card's machine has none), so it runs there without the
 repository's conftest:
@@ -136,3 +136,123 @@ def test_main_path_on_the_card_matches_the_cpu(cuda):
     torch.testing.assert_close(out["cuda"].ep_len.cpu(), out["cpu"].ep_len)
     torch.testing.assert_close(out["cuda"].state.qpos.cpu(),
                                out["cpu"].state.qpos, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("a_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,nc,nl", [
+    (37, 11, 0),     # ne = 33, the smallest system the dispatch sends here
+    (4096, 16, 16),  # ne = 64: build_humanoid(contact_cap=16, limit_cap=16)
+    (300, 37, 28),   # ne = 139: the uncapped humanoid
+], ids=["ne33", "ne64", "ne139"])
+def test_wide_kernel_matches_plain(cuda, B, nc, nl, a_dtype):
+    """``apgd_solve_wide`` against ``_apgd_scan`` (the XLA route's port) on
+    the same systems, atol 1e-4 (TestAPGD's); the dispatch sends ne > 32
+    to it and to no other kernel."""
+    a, b, mu, f0 = _problem(B, nc, nl, a_dtype, seed=B + nc)
+    for iters in (0, 8, 15, 60):
+        kw = dict(iterations=iters, nc=nc, nl=nl)
+        ref = ops._apgd_scan(a, b, mu, f0, **kw)
+        out = ops.apgd_solve_wide(a, b, mu, f0, **kw)
+        torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+    counts = (ops.apgd_solve.launches, ops.apgd_solve_lanes.launches,
+              ops.apgd_solve_wide.launches)
+    for layout in ("blocks", "lanes"):
+        out = ops.apgd(a, b, mu, f0, iterations=15, nc=nc, nl=nl,
+                       layout=layout)
+        torch.testing.assert_close(
+            out, ops._apgd_scan(a, b, mu, f0, iterations=15, nc=nc, nl=nl),
+            atol=ATOL, rtol=0)
+    assert (ops.apgd_solve.launches, ops.apgd_solve_lanes.launches,
+            ops.apgd_solve_wide.launches) == (counts[0], counts[1],
+                                              counts[2] + 2)
+
+
+def test_wide_kernel_refuses_systems_above_its_maximum(cuda):
+    big = _problem(4, 66, 0, torch.bfloat16, seed=5)   # ne = 198
+    n0 = ops.apgd_solve_wide.launches
+    with pytest.raises(ValueError, match="MAX_NE_WIDE"):
+        ops.apgd(*big, iterations=4, nc=66, nl=0)
+    assert ops.apgd_solve_wide.launches == n0
+
+
+@pytest.mark.parametrize("caps", [16, 1 << 30], ids=["caps16", "uncapped"])
+def test_larger_caps_on_the_card_match_the_cpu(cuda, caps):
+    """16 envs × 20 steps with 16/16 caps (ne = 64) and uncapped (ne = 139):
+    the card (the wide kernel, 4 launches per step, nothing else) against
+    the CPU (plain version), episode lengths equal and qpos within 1e-3 as
+    on the main path."""
+    idx = torch.arange(16) * 2 % 39
+    out = {}
+    for dev in ("cuda", "cpu"):
+        env = DPEnvV3(model=build_humanoid(contact_cap=caps, limit_cap=caps,
+                                           device=dev))
+        policy = MlpPolicy(ob_dim=56, ac_dim=28)
+        params = checkpoint.load_trpo_params(CKPT, policy, dev)
+        n0 = (ops.apgd_solve.launches, ops.apgd_solve_wide.launches)
+        out[dev] = runner.rollout(env, policy, params, env.reset_at(idx), 20)
+        if dev == "cuda":
+            assert (ops.apgd_solve.launches - n0[0],
+                    ops.apgd_solve_wide.launches - n0[1]) == (0, 4 * 20)
+    torch.testing.assert_close(out["cuda"].ep_len.cpu(), out["cpu"].ep_len)
+    torch.testing.assert_close(out["cuda"].state.qpos.cpu(),
+                               out["cpu"].state.qpos, atol=1e-3, rtol=0)
+
+
+def test_segment_update_on_the_card_matches_the_cpu(cuda):
+    """One TRPO ``_segment_update`` from the same 16-env × 32-step segment
+    (a rollout on the card), params and vf permutations, on the card and on
+    the CPU: the same accepted step size, the new policy within 1e-4 and
+    the vf within 1e-3 of max(1, max|x|), the losses within 1e-4 (f32 sums
+    in another order, amplified by CG; TF32 is off)."""
+    from deepmimic_mujoco_torch.algos import adam
+    from deepmimic_mujoco_torch.algos import trpo
+
+    B, T = 16, 32
+    gen = torch.Generator().manual_seed(0)
+    policy = MlpPolicy(ob_dim=56, ac_dim=28)
+    p_cpu = policy.init(gen, "cpu")
+    perms = torch.stack([torch.randperm(B * T, generator=gen)
+                         for _ in range(3)])
+
+    class FixedPerms(trpo.Draws):
+        def vf_permutations(self, n, epochs, device):
+            return perms.to(device)
+
+    def to(params, dev):
+        return {"pol": [{k: x.to(dev) for k, x in layer.items()}
+                        for layer in params["pol"]],
+                "vf": [{k: x.to(dev) for k, x in layer.items()}
+                       for layer in params["vf"]],
+                "logstd": params["logstd"].to(dev),
+                "ob_rms": type(params["ob_rms"])(
+                    *(x.to(dev) for x in params["ob_rms"]))}
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        learner = trpo.TRPO(DPEnvV3(model=build_humanoid(device=dev)),
+                            policy, trpo.TRPOConfig(horizon=T, num_envs=B))
+        params = to(p_cpu, dev)
+        if dev == "cuda":
+            g = torch.Generator(device="cuda").manual_seed(0)
+            seg = learner._rollout(
+                params, learner.env.reset(g, B),
+                torch.ones(B, dtype=torch.bool, device="cuda"), trpo.Draws(g),
+                torch.zeros(B, device="cuda"),
+                torch.zeros(B, dtype=torch.int32, device="cuda"))[0]
+        n_vf = sum(x.numel() for x in trpo.vf_leaves(params))
+        res = learner._segment_update(params, adam.init(n_vf, dev),
+                                      {k: v.to(dev) for k, v in seg.items()},
+                                      FixedPerms(None))
+        out[dev] = (to(res[0], "cpu"), res[2].cpu(), res[4])
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+    (pc, lc, ic), (pp, lp, ip) = out["cuda"], out["cpu"]
+    assert (ic.stepsize, ic.accepted) == (ip.stepsize, ip.accepted)
+    assert rel(trpo.flatten(trpo.policy_leaves(pc)),
+               trpo.flatten(trpo.policy_leaves(pp))) <= 1e-4
+    assert rel(trpo.flatten(trpo.vf_leaves(pc)),
+               trpo.flatten(trpo.vf_leaves(pp))) <= 1e-3
+    assert rel(lc, lp) <= 1e-4

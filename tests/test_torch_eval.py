@@ -6,6 +6,7 @@ is loaded into both stacks; the slice test runs the JAX package's own
 ``evaluate`` (one jitted rollout program) and the port's rollout from the
 same mocap frames."""
 
+import json
 import os
 
 import numpy as np
@@ -267,7 +268,37 @@ def test_cli_evaluate_on_cpu():
     assert res.rollout.state.qpos.shape == (3, 35)
 
 
-@pytest.mark.parametrize("task", ["train", "sample"])
-def test_cli_tasks_of_later_slices_raise(task):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_trpo.main(["--task", task, "--device", "cpu"])
+@pytest.mark.parametrize("case", ["train", "sample", "ppo"])
+def test_cli_train_sample_and_ppo(case, tmp_path):
+    """``--task train`` writes args.json, progress.csv, the monitor CSV
+    under the JAX loop's name and the checkpoint; ``--task sample`` writes
+    ragged episodes of stochastic actions; ``--algo ppo`` still raises."""
+    if case == "ppo":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            train_trpo.main(["--algo", "ppo", "--device", "cpu"])
+        return
+    if case == "sample":
+        path = str(tmp_path / "samples.npz")
+        res = train_trpo.main(["--task", "sample", "--device", "cpu",
+                               "--eval-episodes", "3", "--eval-horizon", "4",
+                               "--load-model-path", CKPT,
+                               "--sample-save-path", path])
+        with np.load(path, allow_pickle=True) as z:
+            assert [len(o) for o in z["obs"]] == list(z["lens"])
+            assert z["acs"][0].shape[1] == 28
+        assert 0 < res.avg_len <= 4
+        return
+    state = train_trpo.main([
+        "--task", "train", "--device", "cpu", "--num-iters", "1",
+        "--num-envs", "2", "--timesteps-per-batch", "8",
+        "--log-dir", str(tmp_path / "logs"),
+        "--checkpoint-dir", str(tmp_path / "ckpt")])
+    logs = tmp_path / "logs" / "DPEnvV3" / "trpo-walk-0"
+    with open(logs / "args.json") as fh:
+        assert json.load(fh)["num_envs"] == 2
+    assert (logs / "progress.csv").read_text().count("\n") == 2
+    assert (logs / "monitor.json.monitor.csv").exists()
+    params = checkpoint.load_trpo_params(
+        str(tmp_path / "ckpt" / "DPEnvV3" / "trpo-walk-0" / "trpo_state.npz"),
+        MlpPolicy(56, 28), "cpu")
+    torch.testing.assert_close(params["logstd"], state.params["logstd"])
