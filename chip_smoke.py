@@ -44,13 +44,25 @@ Phases, each printing its lines before the last:
    ``_segment_update`` on the card against the CPU from the same segment;
    and ``python -m deepmimic_mujoco_torch.cli.train_trpo --task train
    --num-iters 2`` at 768 envs, whose checkpoint must read back; then
+   [imitation], the README's imitation recipe (``imitation_dm`` reward,
+   ``pd_residual`` control, 2 substeps, 300-step episodes, fall-contact
+   termination, the 68-D obs) with the bundled ``walk_r2`` policy (relu
+   1024-512), also before any profiler session: ``--task evaluate`` over
+   4096 RSI episodes x 300 steps (mean and median episode length ≥ 95% of
+   the cap, reward per step within 0.03 of the port's CPU figure, 8
+   ``apgd_solve`` launches per control step, no wide launch, no call of
+   the plain ``_apgd_scan``), ``TRPO.iteration`` with the recipe's flags
+   at 4096 envs x 32 steps (one warm-up, one timed) and the training CLI
+   at 64 envs for one iteration, whose checkpoint must read back; then
    profiler windows of one env step's
    four solves through ``apgd()`` (blocks: four kernels and nothing else),
-   and a ``torch.profiler`` window of 5 env steps at 4096 envs (step time,
-   device busy share, kernel launches per step, the solve's device time and
-   launches per step, top kernels); the 4096-env blocks evaluation again,
-   after those profiler sessions; then a 16-env, 20-step rollout on the
-   card held against the same rollout on the CPU (plain versions);
+   and ``torch.profiler`` windows of 5 env steps at 4096 envs and of 3
+   recipe steps at 4096 envs (step time, device busy share, kernel
+   launches per step, the solve's device time and launches per step, top
+   kernels); the 4096-env blocks evaluation again, after those profiler
+   sessions; then 16-env, 20-step rollouts on the card, of the walk
+   evaluation and of the recipe, held against the same rollouts on the CPU
+   (plain versions: qpos and rewards within 1e-3, equal done flags);
 5. one JSON line with every kernel's numbers (with the registers, spills
    and shared memory of the instantiation the main path runs, and ptxas's
    figures for every instantiation), then the result line.
@@ -84,6 +96,28 @@ F32_FLOPS_PER_S = 67e12      # H100 SXM, f32 without tensor cores
 WIDE = ((16, 16), (37, 28))  # (nc, nl): 16/16 caps (ne 64), uncapped (139)
 TRAIN_HORIZON = 64           # bench.py's TRPO configuration: g_step 1
 MAX_KL = 0.01                # TRPOConfig's default
+
+# the imitation recipe (README "Quick start") and its bundled policy
+CKPT_R2 = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "train_ckpt_walk_r2", "DPEnvV3", "trpo-walk-0",
+                       "trpo_state.npz")
+RECIPE_ENV = dict(clip="walk", reward_mode="imitation_dm",
+                  control_mode="pd_residual", n_substeps=2,
+                  max_episode_steps=300)
+RECIPE_POLICY = dict(ob_dim=68, ac_dim=28, hidden_sizes=(1024, 512),
+                     activation="relu", fixed_logstd=-3.0)
+RECIPE_FLAGS = ["--reward-mode", "imitation_dm", "--control-mode",
+                "pd_residual", "--n-substeps", "2", "--max-episode-steps",
+                "300", "--hidden-sizes", "1024,512", "--activation", "relu",
+                "--fixed-logstd", "-3.0"]
+RECIPE_TRAIN_FLAGS = ["--reset-mode", "rsi", "--gamma", "0.95", "--lam",
+                      "0.95"]
+IMIT_HORIZON = 300           # the recipe's episode cap
+IMIT_TRAIN_HORIZON = 32
+# reward per step of walk_r2 on the CPU: the port's cli.eval_imitation,
+# 32 deterministic episodes x 300 steps from the frames that JAX's
+# tools/eval_imitation.py draws (JAX: 0.771 on the same frames)
+CPU_REWARD_PER_STEP = 0.7718
 
 
 def _problem(torch, B: int, a_dtype, gen, nc: int = NC, nl: int = NL):
@@ -289,13 +323,16 @@ def _timed(fn, acc: dict, key: str):
     return run
 
 
-def _train(torch, ops, n_envs: int, timed_iters: int = 2) -> dict:
+def _train(torch, ops, n_envs: int, timed_iters: int = 2,
+           recipe: bool = False) -> dict:
     """[train] ``TRPO.iteration`` at ``n_envs`` envs x 64 steps, g_step 1
     (bench.py's configuration), from random params: one warm-up iteration,
     then ``timed_iters`` timed ones, with the launch counts set to 0 just
     before them and read just after.  Phase times are wall time between
     synchronizations around the rollout, the policy update (gradient, CG,
-    line search) and the vf epochs."""
+    line search) and the vf epochs.  ``recipe``: [imitation], the same on
+    the imitation recipe's env, policy and flags at 32 steps (8 APGD
+    launches per control step: 2 substeps of 4 stage solves)."""
     from collections import deque
 
     from deepmimic_mujoco_torch.algos.trpo import TRPO, TRPOConfig
@@ -303,10 +340,18 @@ def _train(torch, ops, n_envs: int, timed_iters: int = 2) -> dict:
     from deepmimic_mujoco_torch.models.policy import MlpPolicy
     from deepmimic_mujoco_torch.physics.humanoid import build_humanoid
 
-    learner = TRPO(DPEnvV3(model=build_humanoid(device="cuda")),
-                   MlpPolicy(ob_dim=56, ac_dim=28),
-                   TRPOConfig(horizon=TRAIN_HORIZON, num_envs=n_envs,
-                              g_step=1))
+    model = build_humanoid(device="cuda")
+    if recipe:
+        tag, horizon, per_step = "[imitation]", IMIT_TRAIN_HORIZON, 8
+        learner = TRPO(DPEnvV3(model=model, **RECIPE_ENV),
+                       MlpPolicy(**RECIPE_POLICY),
+                       TRPOConfig(horizon=horizon, num_envs=n_envs, g_step=1,
+                                  gamma=0.95, lam=0.95, reset_mode="rsi"))
+    else:
+        tag, horizon, per_step = "[train]", TRAIN_HORIZON, 4
+        learner = TRPO(DPEnvV3(model=model), MlpPolicy(ob_dim=56, ac_dim=28),
+                       TRPOConfig(horizon=horizon, num_envs=n_envs,
+                                  g_step=1))
     phase = {"rollout": 0.0, "policy update": 0.0, "vf epochs": 0.0}
     learner._rollout = _timed(learner._rollout, phase, "rollout")
     learner._policy_update = _timed(learner._policy_update, phase,
@@ -332,7 +377,7 @@ def _train(torch, ops, n_envs: int, timed_iters: int = 2) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     n = _counts(ops)
-    steps = timed_iters * TRAIN_HORIZON
+    steps = timed_iters * horizon
     rec = {k: float(getattr(stats, k)) for k in (
         "meankl", "surrgain", "ev_tdlam_before", "optimgain", "entropy")}
     rec["EpLenMean"] = sum(lens) / len(lens) if lens else float("nan")
@@ -341,7 +386,12 @@ def _train(torch, ops, n_envs: int, timed_iters: int = 2) -> dict:
                phase_s={k: v / timed_iters for k, v in phase.items()},
                apgd_launches_per_env_step=n["apgd_solve"] / steps,
                launches=n)
-    print(f"[train] TRPO.iteration {n_envs} envs x {TRAIN_HORIZON} steps, "
+    env = learner.env
+    rec["env"] = {k: getattr(env, k) for k in (
+        "reward_mode", "control_mode", "n_substeps", "pd_target_interp",
+        "obs_mode", "include_phase", "termination", "max_episode_steps",
+        "observation_size")}
+    print(f"{tag} TRPO.iteration {n_envs} envs x {horizon} steps, "
           f"g_step 1, {timed_iters} timed after 1 warm-up: "
           f"{rec['env_steps_per_s']:.1f} env-steps/s, "
           f"{rec['iteration_s']:.3f} s per iteration ("
@@ -351,15 +401,18 @@ def _train(torch, ops, n_envs: int, timed_iters: int = 2) -> dict:
           f"{rec['meankl']:.5f}, surrgain {rec['surrgain']:.5f}, "
           f"ev_tdlam_before {rec['ev_tdlam_before']:.4f}, EpLenMean "
           f"{rec['EpLenMean']:.2f}")
+    # EpLenMean is NaN only when no episode ended in the iterations run
     finite = all(v == v and abs(v) != float("inf") for k, v in rec.items()
                  if k in ("meankl", "surrgain", "ev_tdlam_before",
-                          "optimgain", "entropy", "EpLenMean"))
+                          "optimgain", "entropy")
+                 or (k == "EpLenMean" and lens))
     if not (finite and rec["meankl"] <= 1.5 * MAX_KL):
-        raise AssertionError(f"[train] {n_envs} envs: stats {rec}")
-    if n != {"apgd_solve": 4 * steps, "apgd_solve_lanes": 0,
+        raise AssertionError(f"{tag} {n_envs} envs: stats {rec}")
+    if n != {"apgd_solve": per_step * steps, "apgd_solve_lanes": 0,
              "apgd_solve_wide": 0}:
-        raise AssertionError(f"[train] {n_envs} envs: APGD launches {n}, "
-                             f"expected 4 per env step ({4 * steps})")
+        raise AssertionError(f"{tag} {n_envs} envs: APGD launches {n}, "
+                             f"expected {per_step} per env step "
+                             f"({per_step * steps})")
     return rec
 
 
@@ -437,11 +490,12 @@ def _segment_card_vs_cpu(torch) -> dict:
     return d
 
 
-def _train_cli(n_envs: int = 768) -> None:
+def _train_cli(n_envs: int = 768, recipe: bool = False) -> None:
     """[train] ``python -m deepmimic_mujoco_torch.cli.train_trpo --task train
     --num-iters 2`` at ``n_envs`` envs (64 steps, g_step 1) into a temporary
     directory; the checkpoint it writes reads back through
-    ``load_trpo_params``."""
+    ``load_trpo_params``.  ``recipe``: [imitation], one iteration of the
+    imitation recipe's flags at 32 steps."""
     import tempfile
 
     import torch
@@ -449,12 +503,19 @@ def _train_cli(n_envs: int = 768) -> None:
     from deepmimic_mujoco_torch.io_utils import checkpoint
     from deepmimic_mujoco_torch.models.policy import MlpPolicy
 
+    if recipe:
+        tag, iters, horizon = "[imitation]", 1, IMIT_TRAIN_HORIZON
+        flags, policy = RECIPE_FLAGS + RECIPE_TRAIN_FLAGS, MlpPolicy(
+            **RECIPE_POLICY)
+    else:
+        tag, iters, horizon = "[train]", 2, TRAIN_HORIZON
+        flags, policy = [], MlpPolicy(56, 28)
     root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as tmp:
         cmd = [sys.executable, "-m", "deepmimic_mujoco_torch.cli.train_trpo",
-               "--task", "train", "--num-iters", "2", "--num-envs",
-               str(n_envs), "--timesteps-per-batch", str(TRAIN_HORIZON),
-               "--g-step", "1", "--seed", str(SEED),
+               "--task", "train", "--num-iters", str(iters), "--num-envs",
+               str(n_envs), "--timesteps-per-batch", str(horizon),
+               "--g-step", "1", "--seed", str(SEED), *flags,
                "--log-dir", os.path.join(tmp, "logs"),
                "--checkpoint-dir", os.path.join(tmp, "ckpt")]
         t0 = time.perf_counter()
@@ -468,18 +529,153 @@ def _train_cli(n_envs: int = 768) -> None:
         with open(os.path.join(tmp, "logs", run, "progress.csv")) as fh:
             rows = fh.read().strip().splitlines()
         path = os.path.join(tmp, "ckpt", run, "trpo_state.npz")
-        params = checkpoint.load_trpo_params(path, MlpPolicy(56, 28), "cuda")
+        params = checkpoint.load_trpo_params(path, policy, "cuda")
         finite = all(bool(torch.isfinite(x).all()) for x in
                      [params["logstd"]] + [layer["w"] for layer in
                                            params["pol"] + params["vf"]])
         last = dict(zip(rows[0].split(","), rows[-1].split(",")))
-        print(f"[train] CLI --task train --num-iters 2 at {n_envs} envs: exit "
-              f"0 in {dt:.1f} s (process start and imports included), "
-              f"{len(rows) - 1} progress rows, last meankl {last['meankl']} "
-              f"EpLenMean {last['EpLenMean']}; its checkpoint reads back "
-              f"through load_trpo_params, finite {finite}")
-        if len(rows) != 3 or not finite:
-            raise AssertionError("[train] the CLI's log or checkpoint is off")
+        print(f"{tag} CLI --task train --num-iters {iters} at {n_envs} envs "
+              f"x {horizon} steps: exit 0 in {dt:.1f} s (process start and "
+              f"imports included), {len(rows) - 1} progress rows, last "
+              f"meankl {last['meankl']} EpLenMean {last['EpLenMean']}; its "
+              f"checkpoint reads back through load_trpo_params, finite "
+              f"{finite}")
+        if len(rows) != iters + 1 or not finite:
+            raise AssertionError(f"{tag} the CLI's log or checkpoint is off")
+
+
+def _imitation_eval(torch, ops, train_trpo) -> dict:
+    """[imitation] ``cli.train_trpo --task evaluate`` of walk_r2 with the
+    recipe's flags: 4096 RSI episodes x 300 steps, deterministic, the
+    launch counts set to 0 just before and read just after; the plain
+    ``_apgd_scan`` must not be called on the card."""
+    plain, scans = ops._apgd_scan, []
+
+    def spy(*args, **kw):
+        scans.append(1)
+        return plain(*args, **kw)
+
+    ops._apgd_scan = spy
+    _zero_counts(ops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        res = train_trpo.main([
+            "--task", "evaluate", "--load-model-path", CKPT_R2,
+            "--eval-episodes", str(B_MAIN), "--eval-horizon",
+            str(IMIT_HORIZON), *RECIPE_FLAGS, "--device", "cuda",
+            "--seed", str(SEED)])
+        torch.cuda.synchronize()
+    finally:
+        ops._apgd_scan = plain
+    dt = time.perf_counter() - t0
+    n = _counts(ops)
+    lens = res.rollout.ep_len.double()
+    rec = {"ep_len_mean": float(lens.mean()),
+           "ep_len_median": float(lens.quantile(0.5)),
+           "reward_per_step": res.avg_ret / res.avg_len,
+           "env_steps_per_s": B_MAIN * IMIT_HORIZON / dt, "seconds": dt,
+           "apgd_launches_per_control_step": {
+               "blocks": n["apgd_solve"] / IMIT_HORIZON,
+               "wide": n["apgd_solve_wide"] / IMIT_HORIZON},
+           "apgd_scan_calls": len(scans), "launches": n}
+    st = res.rollout.state
+    finite = all(bool(torch.isfinite(x).all())
+                 for x in (st.qpos, st.qvel, st.obs))
+    print(f"[imitation] evaluate walk_r2, {B_MAIN} RSI episodes x "
+          f"{IMIT_HORIZON} steps, deterministic: EpLen mean "
+          f"{rec['ep_len_mean']:.2f} median {rec['ep_len_median']:.0f}, "
+          f"reward per step {rec['reward_per_step']:.4f} (the port on the "
+          f"CPU: {CPU_REWARD_PER_STEP}), {dt:.2f} s, "
+          f"{rec['env_steps_per_s']:.1f} env-steps/s; APGD launches per "
+          f"control step: blocks "
+          f"{rec['apgd_launches_per_control_step']['blocks']:.2f}, wide "
+          f"{rec['apgd_launches_per_control_step']['wide']:.2f}; "
+          f"_apgd_scan called {len(scans)} times; finite {finite}")
+    if not (finite and rec["ep_len_mean"] >= 0.95 * IMIT_HORIZON
+            and abs(rec["reward_per_step"] - CPU_REWARD_PER_STEP) <= 0.03):
+        raise AssertionError(f"[imitation] evaluation off: {rec}")
+    if n != {"apgd_solve": 8 * IMIT_HORIZON, "apgd_solve_lanes": 0,
+             "apgd_solve_wide": 0} or scans:
+        raise AssertionError(f"[imitation] APGD launches {n}, expected 8 "
+                             f"per control step; _apgd_scan {len(scans)}")
+    return rec
+
+
+def _imitation_card_vs_cpu(torch) -> dict:
+    """[imitation] 16 envs x 20 steps of the recipe env from fixed mocap
+    frames through walk_r2, on the card (kernel) and on the CPU (plain)."""
+    from deepmimic_mujoco_torch.algos import runner
+    from deepmimic_mujoco_torch.envs.dp_env_v3 import DPEnvV3
+    from deepmimic_mujoco_torch.io_utils import checkpoint
+    from deepmimic_mujoco_torch.models.policy import MlpPolicy
+    from deepmimic_mujoco_torch.physics.humanoid import build_humanoid
+
+    idx = torch.arange(16) * 5 % 39
+    out = {}
+    for dev in ("cuda", "cpu"):
+        env = DPEnvV3(model=build_humanoid(device=dev), **RECIPE_ENV)
+        policy = MlpPolicy(**RECIPE_POLICY)
+        params = checkpoint.load_trpo_params(CKPT_R2, policy, dev)
+        out[dev] = runner.rollout(env, policy, params, env.reset_at(idx), 20,
+                                  record=True)
+    c, p = out["cuda"], out["cpu"]
+    d = {"qpos": float((c.state.qpos.cpu() - p.state.qpos).abs().max()),
+         "obs": float((c.traj[0].cpu() - p.traj[0]).abs().max()),
+         "reward": float((c.traj[2].cpu() - p.traj[2]).abs().max())}
+    same_done = bool((c.ep_len.cpu() == p.ep_len).all()
+                     and (c.state.done.cpu() == p.state.done).all())
+    print(f"[imitation] 16 envs x 20 steps of the recipe, card vs CPU: qpos "
+          f"max_abs_diff {d['qpos']:.3e} (atol {ROLLOUT_ATOL}), obs "
+          f"{d['obs']:.3e}, reward {d['reward']:.3e} (atol {ROLLOUT_ATOL}); "
+          f"done flags and episode lengths equal {same_done}")
+    if not (d["qpos"] <= ROLLOUT_ATOL and d["reward"] <= ROLLOUT_ATOL
+            and same_done):
+        raise AssertionError("[imitation] the card's recipe rollout "
+                             "disagrees with the CPU's")
+    d["done_equal"] = same_done
+    return d
+
+
+def _profile(torch, runner, env, policy, params, state, steps: int,
+             tag: str) -> dict:
+    """A ``torch.profiler`` window of ``steps`` env steps (after 2 warm-up
+    steps): step time, device busy share, kernel launches per step, the
+    APGD kernel's share, top device kernels."""
+    runner.rollout(env, policy, params, state, 2)  # warm-up
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        runner.rollout(env, policy, params, state, steps)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    rows = [(getattr(e, "self_device_time_total", 0.0), e.count, e.key)
+            for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(r[0] for r in rows)
+    apgd_us = sum(r[0] for r in rows if "apgd_kernel" in r[2])
+    apgd_n = sum(r[1] for r in rows if "apgd_kernel" in r[2]) / steps
+    launches_per_step = sum(r[1] for r in rows) / steps
+    top = sorted(rows, reverse=True)[:5]
+    ms = 1e3 * steps
+    if busy_us > 0:
+        busy = (f"device busy {busy_us / ms:.2f} ms per step "
+                f"({100 * busy_us / window_us:.1f}%), {launches_per_step:.0f} "
+                f"kernel launches per step, the solve dispatch (APGD kernel) "
+                f"{apgd_us / ms:.4f} ms per step over {apgd_n:.0f} launches "
+                f"({100 * apgd_us / busy_us:.2f}% of the device time); top: "
+                + "; ".join(f"{k[:48]} {t / ms:.3f} ms x{c // steps}"
+                            for t, c, k in top))
+    else:
+        busy = "device time not measured (the profiler showed no kernels)"
+    print(f"{tag} {steps} env steps at {state.qpos.shape[0]} envs: "
+          f"{window_us / ms:.2f} ms per step, {busy}")
+    return {"step_ms": window_us / ms, "busy_ms": busy_us / ms,
+            "busy_share": busy_us / window_us,
+            "launches_per_step": launches_per_step,
+            "apgd_ms": apgd_us / ms, "apgd_launches_per_step": apgd_n}
 
 
 def main() -> int:
@@ -717,6 +913,14 @@ def main() -> int:
     seg_diff = _segment_card_vs_cpu(torch)
     _train_cli()
 
+    # the imitation recipe: evaluation of walk_r2, then training; still
+    # before any profiler session
+    imit = {"evaluate": _imitation_eval(torch, ops, train_trpo)}
+    imit["train"] = _train(torch, ops, B_MAIN, timed_iters=1, recipe=True)
+    launches["apgd_solve"] += (imit["evaluate"]["launches"]["apgd_solve"]
+                               + imit["train"]["launches"]["apgd_solve"])
+    _train_cli(64, recipe=True)
+
     # one env step's four solves through the dispatch: the wrappers' counts
     # give the launches; profiler windows show what ran on the device (a
     # window may miss a kernel's record, so the most any window saw is read)
@@ -742,35 +946,16 @@ def main() -> int:
             raise AssertionError(f"apgd(layout='blocks') ran {counts}")
 
     # where an env step's time goes: a profiled window of 5 steps at 4096
-    # (blocks layout, whose solve dispatch launches the APGD kernel alone)
-    runner.rollout(env, policy, params, state, 2)  # warm-up
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        runner.rollout(env, policy, params, state, 5)
-        torch.cuda.synchronize()
-        window_us = (time.perf_counter() - t0) * 1e6
-    rows = [(getattr(e, "self_device_time_total", 0.0), e.count, e.key)
-            for e in prof.key_averages()
-            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(r[0] for r in rows)
-    apgd_us = sum(r[0] for r in rows if "apgd_kernel" in r[2])
-    apgd_n = sum(r[1] for r in rows if "apgd_kernel" in r[2]) / 5
-    launches_per_step = sum(r[1] for r in rows) / 5
-    top = sorted(rows, reverse=True)[:5]
-    if busy_us > 0:
-        busy = (f"device busy {busy_us / 5e3:.2f} ms per step "
-                f"({100 * busy_us / window_us:.1f}%), {launches_per_step:.0f} "
-                f"kernel launches per step, the solve dispatch (APGD kernel) "
-                f"{apgd_us / 5e3:.4f} ms per step over {apgd_n:.0f} launches "
-                f"({100 * apgd_us / busy_us:.2f}% of the device time); top: " + "; ".join(
-                    f"{k[:48]} {t / 5e3:.3f} ms x{c // 5}" for t, c, k in top))
-    else:
-        busy = "device time not measured (the profiler showed no kernels)"
-    print(f"[profile] 5 env steps at {B_MAIN} envs: {window_us / 5e3:.2f} ms "
-          f"per step, {busy}")
+    # (blocks layout, whose solve dispatch launches the APGD kernel alone),
+    # then 3 steps of the imitation recipe at 4096
+    _profile(torch, runner, env, policy, params, state, 5, "[profile]")
+    imit_env = DPEnvV3(model=build_humanoid(device="cuda"), **RECIPE_ENV)
+    imit_policy = MlpPolicy(**RECIPE_POLICY)
+    imit["profile"] = _profile(
+        torch, runner, imit_env, imit_policy,
+        checkpoint.load_trpo_params(CKPT_R2, imit_policy, "cuda"),
+        imit_env.reset_at(torch.arange(B_MAIN) % imit_env.clip_len), 3,
+        "[imitation] [profile]")
     evaluate(B_MAIN, "blocks", label=", again after the profiler sessions")
 
     # the card's rollout against the CPU's (plain versions), small input
@@ -787,6 +972,7 @@ def main() -> int:
           f"{d_q:.3e} (atol {ROLLOUT_ATOL}), ep_len equal {same_len}")
     if not (d_q <= ROLLOUT_ATOL and same_len):
         raise AssertionError("the card's rollout disagrees with the CPU's")
+    imit["card_vs_cpu"] = _imitation_card_vs_cpu(torch)
 
     # 5. report
     kernels = []
@@ -834,6 +1020,7 @@ def main() -> int:
         "ne64": w64, "ne139": w139})
     kernels[0]["train"] = {str(n): r for n, r in train.items()}
     kernels[0]["train_segment_card_vs_cpu"] = seg_diff
+    kernels[0]["imitation"] = imit
     print(f"[done] {time.perf_counter() - t_start:.1f} s after the imports")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """TRPO training, evaluation and sampling CLI (port of
 ``deepmimic_mujoco_tpu/cli/train_trpo.py`` with its TRPO flags and
-defaults, on DPEnvV3's default configuration: alive reward, torque control,
-the legacy obs, CoM termination).  ``--algo ppo`` and the imitation
-configurations raise ``NotImplementedError`` naming ROADMAP.md.
+defaults) on single-clip ``DPEnvV3``: every reward mode, torque, PD and
+PD-residual control, both obs modes and both termination rules.  Not
+ported: ``--algo ppo`` and multi-clip ``--motion a,b`` raise
+``NotImplementedError`` naming ROADMAP.md; the JAX CLI's ``--dynamics``,
+``--joint-limits``, ``--warm-iterations`` and ``--clip-weights`` have no
+flag here.
 
 Examples:
   python -m deepmimic_mujoco_torch.cli.train_trpo --task train \\
@@ -11,6 +14,17 @@ Examples:
   python -m deepmimic_mujoco_torch.cli.train_trpo --task evaluate \\
       --load-model-path train_ckpt/DPEnvV3/trpo-walk-0/trpo_state.npz \\
       --eval-episodes 4096 --eval-horizon 200
+  # the imitation recipe (README "Quick start"), trained and evaluated
+  python -m deepmimic_mujoco_torch.cli.train_trpo --task train \\
+      --reward-mode imitation_dm --control-mode pd_residual \\
+      --n-substeps 2 --max-episode-steps 300 --reset-mode rsi \\
+      --gamma 0.95 --lam 0.95 --hidden-sizes 1024,512 --activation relu \\
+      --fixed-logstd -3.0 --num-envs 4096 --timesteps-per-batch 32
+  python -m deepmimic_mujoco_torch.cli.train_trpo --task evaluate \\
+      --reward-mode imitation_dm --control-mode pd_residual \\
+      --n-substeps 2 --max-episode-steps 300 --hidden-sizes 1024,512 \\
+      --activation relu --fixed-logstd -3.0 --eval-horizon 300 \\
+      --load-model-path train_ckpt_walk_r2/DPEnvV3/trpo-walk-0/trpo_state.npz
 
 Without ``--device cpu`` they run on the CUDA card.
 """
@@ -117,6 +131,10 @@ def main(argv=None):
         raise NotImplementedError(
             f"--algo {args.algo} is not ported yet (ROADMAP.md, queue A, "
             "item 'Other learners')")
+    if "," in args.motion:
+        raise NotImplementedError(
+            f"--motion {args.motion}: multi-clip training is not ported yet "
+            "(ROADMAP.md, queue A, item 'Multi-clip lanes')")
     device = resolve_device(args.device)
     model = build_humanoid(apgd_layout=args.apgd_layout, device=device)
     env = DPEnvV3(clip=args.motion, model=model, reward_mode=args.reward_mode,

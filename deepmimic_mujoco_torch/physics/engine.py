@@ -1,14 +1,17 @@
 """Simulation engine, batch-first (port of ``deepmimic_mujoco_tpu/physics/
 engine.py``: ``mass_inverse``, ``integrate_pos``, ``forward``, the RK4
-substeps, ``_make_substep`` and ``step``).
+substeps, ``_make_substep``, ``step``, ``pd_torque`` and ``step_pd``).
 
 ``step(model, qpos, qvel, ctrl)`` advances a batch of envs (B, ·) by one
-control step.  RK4 as MuJoCo's ``mj_RungeKutta``; the root quaternion
-integrates on the manifold by the exponential map of the body-local ω."""
+control step under motor controls; ``step_pd`` under a joint PD controller
+re-evaluated at every integrator stage.  RK4 as MuJoCo's
+``mj_RungeKutta``; the root quaternion integrates on the manifold by the
+exponential map of the body-local ω."""
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+import math
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -57,16 +60,32 @@ def integrate_pos(model: PhysicsModel, qpos: torch.Tensor, qvel: torch.Tensor,
     return torch.cat([root_pos, root_quat, hinges], dim=1)
 
 
+def _smooth_force(model: PhysicsModel, kin: kinematics.Kin, qvel, ctrl,
+                  qfrc, jac=None) -> torch.Tensor:
+    """actuator + passive − bias + qfrc_applied (B, nv), summed in the JAX
+    engine's order.  ``ctrl`` None means zero controls: the PD path, whose
+    zero motor force the JAX engine adds as exact zeros."""
+    tau = dynamics.passive_force(model, qvel)
+    if ctrl is not None:
+        tau = dynamics.actuator_force(model, ctrl) + tau
+    tau = tau - dynamics.bias_force(model, kin, qvel, jac=jac)
+    if qfrc is not None:
+        tau = tau + qfrc
+    return tau
+
+
 def forward(model: PhysicsModel, qpos: torch.Tensor, qvel: torch.Tensor,
-            ctrl: torch.Tensor, f_warm: torch.Tensor | None = None,
+            ctrl: Optional[torch.Tensor],
+            qfrc_applied: Optional[torch.Tensor] = None,
+            f_warm: torch.Tensor | None = None,
             solver_iterations: int | None = None) -> Forward:
     """Forward dynamics qacc(qpos, qvel, ctrl) with every quantity evaluated
-    at (qpos, qvel) — the legacy ``stage_reuse='none'`` stage."""
+    at (qpos, qvel) — the legacy ``stage_reuse='none'`` stage.
+    ``qfrc_applied`` (B, nv) adds a generalized force (MuJoCo's channel of
+    that name; the PD controller's torque)."""
     kin = kinematics.fk(model, qpos)
     minv = mass_inverse(dynamics.mass_matrix(model, kin))
-    tau = (dynamics.actuator_force(model, ctrl)
-           + dynamics.passive_force(model, qvel)
-           - dynamics.bias_force(model, kin, qvel))
+    tau = _smooth_force(model, kin, qvel, ctrl, qfrc_applied)
     qacc_smooth = _mv(minv, tau)
     system = solver.assemble_system(model, minv,
                                     collision.floor_contacts(model, kin),
@@ -81,7 +100,9 @@ def _nefc_full(model: PhysicsModel) -> int:
     return int(model.ncand) * 3 + int(model.nhinge)
 
 
-CtrlFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+# (qpos, qvel) of an integrator stage → (ctrl or None, qfrc_applied or None)
+CtrlFn = Callable[[torch.Tensor, torch.Tensor],
+                  tuple[Optional[torch.Tensor], Optional[torch.Tensor]]]
 
 
 def _rk4_substep(model: PhysicsModel, qpos, qvel, ctrl_fn: CtrlFn, f_warm):
@@ -97,7 +118,8 @@ def _rk4_substep(model: PhysicsModel, qpos, qvel, ctrl_fn: CtrlFn, f_warm):
                      (1.0, 1.0 / 6.0)):
         qp_i = integrate_pos(model, qpos, kv, dt * a_i)
         qv_i = qvel + dt * a_i * ka
-        out = forward(model, qp_i, qv_i, ctrl_fn(qp_i, qv_i),
+        ctrl, qfrc = ctrl_fn(qp_i, qv_i)
+        out = forward(model, qp_i, qv_i, ctrl, qfrc_applied=qfrc,
                       f_warm=(f_prev if warm_n > 0 else None),
                       solver_iterations=(warm_n if warm_n > 0 else None))
         kv, ka = qv_i, out.qacc
@@ -130,9 +152,8 @@ def _rk4_substep_frozen(model: PhysicsModel, qpos, qvel, ctrl_fn: CtrlFn,
     it_rest = stage_n if stage_n > 0 else it1
 
     def stage_forward(qp_i, qv_i, f_prev, iters):
-        tau = (dynamics.actuator_force(model, ctrl_fn(qp_i, qv_i))
-               + dynamics.passive_force(model, qv_i)
-               - dynamics.bias_force(model, kin, qv_i, jac=jac))
+        ctrl, qfrc = ctrl_fn(qp_i, qv_i)
+        tau = _smooth_force(model, kin, qv_i, ctrl, qfrc, jac=jac)
         qacc_smooth = _mv(minv, tau)
         sol = solver.solve_system(model, system, qacc_smooth, qv_i,
                                   f_warm=(f_prev if warm_n > 0 else None),
@@ -171,8 +192,55 @@ def step(model: PhysicsModel, qpos: torch.Tensor, qvel: torch.Tensor,
          ctrl: torch.Tensor, n_substeps: int = 1):
     """Advance a batch of envs by ``n_substeps`` physics steps under constant
     ctrl (B, nu); returns (qpos, qvel)."""
-    sub = _make_substep(model, lambda qp, qv: ctrl)
+    sub = _make_substep(model, lambda qp, qv: (ctrl, None))
     f = qvel.new_zeros(qvel.shape[0], _nefc_full(model))
     for _ in range(n_substeps):
+        qpos, qvel, f = sub(qpos, qvel, f)
+    return qpos, qvel
+
+
+def torque_limits(model: PhysicsModel) -> torch.Tensor:
+    """Per-hinge PD torque limit (nhinge,): the motor gears scattered onto
+    their hinges by a scatter-add into zeros, so a hinge without a motor
+    clips to 0 (JAX ``engine.py:394-395``)."""
+    lim = model.actuator_gear.new_zeros(model.nv - 6)
+    return lim.index_add(0, model.actuator_hinge, model.actuator_gear)
+
+
+def pd_torque(model: PhysicsModel, target: torch.Tensor, qpos: torch.Tensor,
+              qvel: torch.Tensor, kp: torch.Tensor, kd: torch.Tensor
+              ) -> torch.Tensor:
+    """DeepMimic-style joint PD (B, nv): τ = kp·(target − q) − kd·q̇ on the
+    hinge dofs, clamped to ± the motor gear (:func:`torque_limits`), zero
+    on the root dofs.  The position error is wrapped to [−π, π): hinge
+    dofs are 2π-periodic."""
+    lim = torque_limits(model)
+    err = target - qpos[:, 7:]
+    # torch.remainder, not torch.fmod: jnp.mod's sign follows the divisor,
+    # and fmod's the dividend, so they differ for negative errors
+    err = torch.remainder(err + math.pi, 2.0 * math.pi) - math.pi
+    tau = kp * err - kd * qvel[:, 6:]
+    tau = torch.clamp(tau, -lim, lim)
+    return torch.cat([tau.new_zeros(tau.shape[0], 6), tau], dim=1)
+
+
+def step_pd(model: PhysicsModel, qpos: torch.Tensor, qvel: torch.Tensor,
+            target: torch.Tensor, kp: torch.Tensor, kd: torch.Tensor,
+            n_substeps: int = 1):
+    """Advance under a PD controller tracking ``target`` joint angles; the
+    torque is evaluated again at every RK4 stage from that stage's (q, q̇),
+    stages 2-4 of a frozen substep included.  ``target`` (B, nhinge) is
+    held for ``n_substeps`` substeps; (B, S, nhinge) is a per-substep
+    schedule of S substeps (``n_substeps`` is then ignored, as in JAX).
+    The constraint solve, its warm chain and its four solves per substep
+    are those of :func:`step`.  Returns (qpos, qvel)."""
+    if target.dim() == 3:
+        schedule = target.unbind(1)
+    else:
+        schedule = (target,) * n_substeps
+    f = qvel.new_zeros(qvel.shape[0], _nefc_full(model))
+    for tgt in schedule:
+        sub = _make_substep(model, lambda qp, qv, t=tgt: (
+            None, pd_torque(model, t, qp, qv, kp, kd)))
         qpos, qvel, f = sub(qpos, qvel, f)
     return qpos, qvel

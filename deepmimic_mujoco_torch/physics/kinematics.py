@@ -94,3 +94,13 @@ def mass_center(model: PhysicsModel, kin: Kin) -> torch.Tensor:
     """Whole-body COM (B, 3)."""
     m = model.body_mass
     return torch.sum(m[:, None] * kin.xcom, dim=1) / torch.sum(m)
+
+
+def com_velocity(model: PhysicsModel, kin: Kin, qvel: torch.Tensor
+                 ) -> torch.Tensor:
+    """Whole-body COM velocity (B, 3) = Σmᵢ·(J_lin,i q̇)/M, the input of the
+    DeepMimic reward's com term."""
+    j_lin, _ = com_jacobians(model, kin)                # (B, nbody, 3, nv)
+    v = torch.einsum("xbiv,xv->xbi", j_lin, qvel)       # (B, nbody, 3)
+    m = model.body_mass
+    return torch.sum(m[:, None] * v, dim=1) / torch.sum(m)

@@ -256,3 +256,35 @@ def test_segment_update_on_the_card_matches_the_cpu(cuda):
     assert rel(trpo.flatten(trpo.vf_leaves(pc)),
                trpo.flatten(trpo.vf_leaves(pp))) <= 1e-3
     assert rel(lc, lp) <= 1e-4
+
+
+def test_imitation_recipe_on_the_card_matches_the_cpu(cuda):
+    """16 envs × 20 steps of the imitation recipe (``imitation_dm``,
+    ``pd_residual``, 2 substeps, fall-contact termination) with the bundled
+    ``walk_r2`` policy: on the card 8 ``apgd_solve`` launches per control
+    step and nothing else; against the CPU (plain version) equal episode
+    lengths, qpos and per-step rewards within 1e-3."""
+    ckpt = os.path.join(os.path.dirname(__file__), "..", "train_ckpt_walk_r2",
+                        "DPEnvV3", "trpo-walk-0", "trpo_state.npz")
+    idx = torch.arange(16) * 5 % 39
+    out = {}
+    for dev in ("cuda", "cpu"):
+        env = DPEnvV3(model=build_humanoid(device=dev), clip="walk",
+                      reward_mode="imitation_dm", control_mode="pd_residual",
+                      n_substeps=2, max_episode_steps=300)
+        policy = MlpPolicy(ob_dim=68, ac_dim=28, hidden_sizes=(1024, 512),
+                           activation="relu", fixed_logstd=-3.0)
+        params = checkpoint.load_trpo_params(ckpt, policy, dev)
+        n0 = (ops.apgd_solve.launches, ops.apgd_solve_lanes.launches,
+              ops.apgd_solve_wide.launches)
+        out[dev] = runner.rollout(env, policy, params, env.reset_at(idx), 20,
+                                  record=True)
+        if dev == "cuda":
+            assert (ops.apgd_solve.launches - n0[0],
+                    ops.apgd_solve_lanes.launches - n0[1],
+                    ops.apgd_solve_wide.launches - n0[2]) == (8 * 20, 0, 0)
+    torch.testing.assert_close(out["cuda"].ep_len.cpu(), out["cpu"].ep_len)
+    torch.testing.assert_close(out["cuda"].state.qpos.cpu(),
+                               out["cpu"].state.qpos, atol=1e-3, rtol=0)
+    torch.testing.assert_close(out["cuda"].traj[2].cpu(), out["cpu"].traj[2],
+                               atol=1e-3, rtol=0)

@@ -178,10 +178,35 @@ def test_env_substeps_and_episode_cap(port_side):
 @pytest.mark.parametrize("kw", [dict(reward_mode="imitation_dm"),
                                 dict(control_mode="pd_residual"),
                                 dict(termination="fall_contact"),
-                                dict(obs_mode="full")])
-def test_env_raises_on_configs_of_later_slices(kw):
+                                dict(obs_mode="full"),
+                                dict(reward_mode="imitation", n_substeps=2,
+                                     control_mode="pd"),
+                                dict(reward_mode="mocap",
+                                     clip_velocities="reference")])
+def test_env_accepts_configs_of_the_imitation_slice(kw, port_side):
+    """Each configuration builds on the CPU, steps once, and has the JAX
+    env's observation size."""
+    env = DPEnvV3(model=port_side[0].model, **kw)
+    assert env.observation_size == JaxDPEnvV3(clip="walk",
+                                              **kw).observation_size
+    s = env.step(env.reset_at([4, 20]), torch.zeros(2, 28))
+    assert s.obs.shape == (2, env.observation_size)
+    assert torch.isfinite(s.qpos).all() and torch.isfinite(s.reward).all()
+
+
+@pytest.mark.parametrize("case", ["mujoco", "euler"])
+def test_env_raises_on_configs_of_later_slices(case):
+    """The host-MuJoCo backend raises at construction, the euler
+    integrator at the first step; both name ROADMAP.md."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DPEnvV3(device="cpu", **kw)
+        if case == "mujoco":
+            DPEnvV3(device="cpu", dynamics="mujoco")
+        else:
+            from deepmimic_mujoco_torch.physics.humanoid import build_humanoid
+
+            env = DPEnvV3(model=build_humanoid(integrator="euler",
+                                               device="cpu"))
+            env.step(env.reset_at([0]), torch.zeros(1, 28))
 
 
 # ---------------------------------------------------------------------------
