@@ -54,6 +54,18 @@ Phases, each printing its lines before the last:
    the plain ``_apgd_scan``), ``TRPO.iteration`` with the recipe's flags
    at 4096 envs x 32 steps (one warm-up, one timed) and the training CLI
    at 64 envs for one iteration, whose checkpoint must read back; then
+   [multi], the multi-clip path, also before any profiler session: 16
+   ``DPEnvV3Multi`` envs over five clips x 20 steps on the card against the
+   CPU (1e-4, equal done flags) and ``cli.eval_multiskill`` of the bundled
+   multiskill_r4 policy (3 skills x 32 episodes x 300 steps); then
+   [trpo-lanes], the independent TRPO lanes of ``cli.imitation15_vmapped``
+   (``algos/lanes.py``): the evaluation of the bundled imit5_r5b lanes (5
+   lanes x 32 episodes x 300 steps from the frames JAX's tool draws, per
+   lane within 0.03 reward per step and 5% EpLen of the port's CPU figures,
+   8 ``apgd_solve`` launches per control step for the whole lane batch),
+   one timed ``LaneTRPO.iteration`` of its 5 lanes x 160 envs resumed from
+   it and one of 15 fresh lanes x 64 envs (horizon 32, g_step 1), and one
+   lane-batched segment update of 3 lanes on the card against the CPU; then
    profiler windows of one env step's
    four solves through ``apgd()`` (blocks: four kernels and nothing else),
    and ``torch.profiler`` windows of 5 env steps at 4096 envs and of 3
@@ -118,6 +130,38 @@ IMIT_TRAIN_HORIZON = 32
 # 32 deterministic episodes x 300 steps from the frames that JAX's
 # tools/eval_imitation.py draws (JAX: 0.771 on the same frames)
 CPU_REWARD_PER_STEP = 0.7718
+
+# the multi-clip path: one policy over three skills (multiskill_r4: xml
+# joint limits) and five independent lane learners (imit5_r5b: mocap joint
+# limits, the 15-clip env, 83-D obs), all relu 1024-512
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CKPT_MULTI = os.path.join(ROOT, "train_ckpt_multiskill_r4", "DPEnvV3",
+                          "trpo-walk+run+spinkick-0", "trpo_state.npz")
+CKPT_LANES = os.path.join(ROOT, "train_ckpt_imit5_r5b", "imit15_state.npz")
+MULTI_SKILLS = "walk,run,spinkick"
+LANE_CLIPS = "walk,run,spinkick,backflip,getup_facedown"
+CLIPS15 = ("backflip,cartwheel,crawl,dance_a,dance_b,getup_facedown,"
+           "getup_faceup,jump,kick,punch,roll,run,spin,spinkick,walk")
+# the evaluation start frames that JAX's tools/imitation15_vmapped.py draws
+# for these lanes from PRNGKey(11): 32 per lane, lanes separated by ';'
+LANE_FRAMES = (
+    "4,5,34,0,13,9,32,24,32,31,4,37,14,29,10,15,21,14,0,19,25,31,9,16,7,17,"
+    "4,23,27,20,18,22;6,6,1,11,20,14,10,0,10,12,7,21,18,2,23,14,8,0,11,22,2,"
+    "2,16,9,2,20,7,18,15,7,0,20;8,15,7,5,51,46,9,7,44,31,21,16,25,37,31,68,"
+    "13,15,13,16,25,57,49,65,35,38,62,69,61,72,16,10;19,28,15,20,14,2,11,19,"
+    "19,8,4,17,8,25,0,28,22,21,18,5,4,15,26,6,9,5,0,21,17,9,4,0;37,25,139,68,"
+    "172,13,165,8,126,43,105,130,161,165,45,138,6,102,26,35,70,127,104,105,"
+    "26,158,159,127,172,106,16,50")
+# (EpLen mean, reward per step) of the port on the CPU on the same episodes:
+# cli.imitation15_vmapped --eval-only --device cpu --frames LANE_FRAMES
+# (32 x 300 per lane), and cli.eval_multiskill --device cpu (32 x 300 per
+# skill from np.random.RandomState(k) frames)
+CPU_LANES = {"walk": (300.0, 0.817), "run": (283.3, 0.506),
+             "spinkick": (300.0, 0.448), "backflip": (264.9, 0.326),
+             "getup_facedown": (46.0, 0.930)}
+CPU_MULTI = {"walk": (271.1, 0.765), "run": (26.9, 0.253),
+             "spinkick": (22.7, 0.159)}
+LANE_TRAIN_HORIZON = 32      # the tool's 256, cut
 
 
 def _problem(torch, B: int, a_dtype, gen, nc: int = NC, nl: int = NL):
@@ -637,6 +681,316 @@ def _imitation_card_vs_cpu(torch) -> dict:
     return d
 
 
+# ---------------------------------------------------------------------------
+# the multi-clip path: DPEnvV3Multi, eval_multiskill, the TRPO lanes
+
+
+def _multi_card_vs_cpu(torch, ops) -> dict:
+    """[multi] 16 envs of ``DPEnvV3Multi`` spread over the five headline
+    clips (the 15-clip env of the lane tool, mocap joint limits), 20 steps
+    of the same seeded actions on the card (kernel) and on the CPU (plain
+    version): qpos, obs and rewards within 1e-4 at every step, equal done
+    flags; 8 ``apgd_solve`` launches per control step on the card."""
+    from deepmimic_mujoco_torch.envs.multi_clip import DPEnvV3Multi
+    from deepmimic_mujoco_torch.physics.humanoid import mocap_hinge_range
+
+    names = CLIPS15.split(",")
+    lane_ids = torch.tensor([names.index(c) for c in LANE_CLIPS.split(",")])
+    cid = lane_ids[torch.arange(16) % 5]
+    acts = 0.1 * torch.randn((20, 16, 28),
+                             generator=torch.Generator().manual_seed(SEED))
+    out, n = {}, None
+    for dev in ("cuda", "cpu"):
+        env = DPEnvV3Multi(clips=names, model=mocap_hinge_range(device=dev),
+                           control_mode="pd_residual", n_substeps=2,
+                           max_episode_steps=300, reward_mode="imitation_dm",
+                           obs_mode="full", termination="fall_contact")
+        frames = (torch.arange(16) * 7) % env.clip_lens.cpu()[cid]
+        s = env.reset_at(cid, frames)
+        if dev == "cuda":
+            _zero_counts(ops)
+        rec = []
+        for a in acts:
+            s = env.step(s, a.to(dev))
+            rec.append([x.cpu() for x in (s.qpos, s.obs, s.reward, s.done)])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            n = _counts(ops)
+        out[dev] = rec
+    d = {k: max(float((c[i] - p[i]).abs().max())
+                for c, p in zip(out["cuda"], out["cpu"]))
+         for i, k in enumerate(("qpos", "obs", "reward"))}
+    same_done = all(bool(torch.equal(c[3], p[3]))
+                    for c, p in zip(out["cuda"], out["cpu"]))
+    print(f"[multi] DPEnvV3Multi, 16 envs over {LANE_CLIPS} x 20 steps "
+          f"(mocap joint limits), card vs CPU: max_abs_diff qpos "
+          f"{d['qpos']:.3e}, obs {d['obs']:.3e}, reward {d['reward']:.3e} "
+          f"(atol 1e-4); done flags equal at every step {same_done}; "
+          f"launches on the card {n}")
+    if not (max(d.values()) <= 1e-4 and same_done):
+        raise AssertionError("[multi] the card's DPEnvV3Multi disagrees with "
+                             "the CPU's")
+    if n != {"apgd_solve": 8 * 20, "apgd_solve_lanes": 0,
+             "apgd_solve_wide": 0}:
+        raise AssertionError(f"[multi] APGD launches {n}")
+    d.update(done_equal=same_done, launches=n)
+    return d
+
+
+def _multi_eval(torch, ops) -> dict:
+    """[multi] ``cli.eval_multiskill`` of multiskill_r4 on the card:
+    walk, run, spinkick (xml joint limits), 32 deterministic episodes x 300
+    steps per skill in one batch; per skill EpLen and reward per step,
+    within 5% / 0.03 of the port's CPU figures; 8 ``apgd_solve`` launches
+    per control step."""
+    from deepmimic_mujoco_torch.cli import eval_multiskill
+
+    _zero_counts(ops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = eval_multiskill.main(["--ckpt", CKPT_MULTI, "--motions",
+                              MULTI_SKILLS, "--episodes", "32", "--horizon",
+                              str(IMIT_HORIZON), "--device", "cuda"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = _counts(ops)
+    skills = {}
+    for k, name in enumerate(MULTI_SKILLS.split(",")):
+        skills[name] = (float(r["len_mean"][k]),
+                        float(r["reward_per_step"][k]))
+    rec = {"skills": skills, "seconds": dt,
+           "env_steps_per_s": 96 * IMIT_HORIZON / dt,
+           "apgd_launches_per_control_step": n["apgd_solve"] / IMIT_HORIZON,
+           "launches": n}
+    print(f"[multi] eval_multiskill multiskill_r4, 3 skills x 32 episodes x "
+          f"{IMIT_HORIZON} steps in one batch: " + "; ".join(
+              f"{k} EpLen {v[0]:.1f} reward per step {v[1]:.4f} (CPU "
+              f"{CPU_MULTI[k][0]} / {CPU_MULTI[k][1]})"
+              for k, v in skills.items())
+          + f"; {dt:.2f} s, {rec['env_steps_per_s']:.1f} env-steps/s; APGD "
+          f"launches per control step {rec['apgd_launches_per_control_step']:.2f}"
+          f" ({n})")
+    for k, (eplen, rps) in skills.items():
+        c_len, c_rps = CPU_MULTI[k]
+        if not (abs(rps - c_rps) <= 0.03 and abs(eplen - c_len)
+                <= 0.05 * c_len):
+            raise AssertionError(f"[multi] {k}: EpLen {eplen}, reward per "
+                                 f"step {rps}; CPU {c_len}, {c_rps}")
+    if n != {"apgd_solve": 8 * IMIT_HORIZON, "apgd_solve_lanes": 0,
+             "apgd_solve_wide": 0}:
+        raise AssertionError(f"[multi] APGD launches {n}")
+    return rec
+
+
+def _lane_args(extra: list):
+    from deepmimic_mujoco_torch.cli import imitation15_vmapped
+
+    return imitation15_vmapped.build_parser().parse_args(
+        ["--device", "cuda", "--seed", str(SEED)] + extra)
+
+
+def _lane_eval(torch, ops, tmp: str) -> dict:
+    """[trpo-lanes] ``cli.imitation15_vmapped --eval-only`` of imit5_r5b on
+    the card, the tool's configuration: 5 lanes x 32 episodes x 300 steps
+    from the frames JAX's tool draws, all lanes in one batch; per lane
+    EpLen, reward per step (within 0.03 of the port's CPU figure, EpLen
+    within 5%) and pose error; 8.00 ``apgd_solve`` launches per control
+    step for the whole lane batch and no wide launch."""
+    from deepmimic_mujoco_torch.cli import imitation15_vmapped
+
+    _zero_counts(ops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = imitation15_vmapped.main([
+        "--eval-only", "--device", "cuda", "--clips", LANE_CLIPS,
+        "--env-clips", CLIPS15, "--envs", "160", "--resume", CKPT_LANES,
+        "--eval-episodes", "32", "--eval-horizon", str(IMIT_HORIZON),
+        "--frames", LANE_FRAMES, "--out", os.path.join(tmp, "lanes.json"),
+        "--ckpt-root", os.path.join(tmp, "ckpt"), "--log-root",
+        os.path.join(tmp, "logs")])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = _counts(ops)
+    ev = res["eval"]
+    lens = ev.ep_len.double().cpu()
+    rps = (ev.rew_sum.double().cpu().mean(1)
+           / torch.clamp(lens.mean(1), min=1.0))
+    lanes_ = {c: {"ep_len_mean": float(lens[k].mean()),
+                  "reward_per_step": float(rps[k]),
+                  "pose_err_rad": float(ev.pose_err[k])}
+              for k, c in enumerate(LANE_CLIPS.split(","))}
+    per_step = n["apgd_solve"] / IMIT_HORIZON
+    rec = {"lanes": lanes_, "seconds": dt,
+           "env_steps_per_s": 160 * IMIT_HORIZON / dt,
+           "apgd_launches_per_control_step": per_step,
+           "wide_launches": n["apgd_solve_wide"], "launches": n}
+    print(f"[trpo-lanes] evaluate imit5_r5b, 5 lanes x 32 episodes x "
+          f"{IMIT_HORIZON} steps (frames of JAX's tool, PRNGKey(11)), one "
+          f"batch of 160 envs: " + "; ".join(
+              f"{c} EpLen {v['ep_len_mean']:.1f} reward per step "
+              f"{v['reward_per_step']:.4f} pose err {v['pose_err_rad']:.3f} "
+              f"rad (CPU {CPU_LANES[c][0]} / {CPU_LANES[c][1]})"
+              for c, v in lanes_.items())
+          + f"; {dt:.2f} s, {rec['env_steps_per_s']:.1f} env-steps/s; "
+          f"apgd_solve launches per control step {per_step:.2f} for the "
+          f"whole lane batch, wide {n['apgd_solve_wide']}")
+    for c, v in lanes_.items():
+        c_len, c_rps = CPU_LANES[c]
+        if not (abs(v["reward_per_step"] - c_rps) <= 0.03
+                and abs(v["ep_len_mean"] - c_len) <= 0.05 * c_len):
+            raise AssertionError(f"[trpo-lanes] lane {c}: {v}; CPU "
+                                 f"{CPU_LANES[c]}")
+    if n != {"apgd_solve": 8 * IMIT_HORIZON, "apgd_solve_lanes": 0,
+             "apgd_solve_wide": 0}:
+        raise AssertionError(f"[trpo-lanes] APGD launches {n}, expected "
+                             f"8 per control step for the lane batch")
+    return rec
+
+
+def _lane_train(torch, ops, resumed: bool) -> dict:
+    """[trpo-lanes] ``LaneTRPO.iteration`` of the lane tool's learner on
+    the card.  ``resumed``: the run's own 5 lanes x 160 envs resumed from
+    imit5_r5b, one warm-up and one timed iteration; else 15 fresh lanes x
+    64 envs (the tool's default width), one iteration.  Horizon cut to 32
+    (the tool's 256) and g_step to 1 (3).  env-steps/s summed over lanes,
+    the phase times, per-lane meankl (finite, ≤ 1.5·max_kl), every
+    parameter finite, 8 ``apgd_solve`` launches per control step."""
+    from deepmimic_mujoco_torch.algos import lanes
+    from deepmimic_mujoco_torch.cli import imitation15_vmapped as tool
+
+    cut = ["--horizon", str(LANE_TRAIN_HORIZON), "--g-step", "1"]
+    if resumed:
+        tag, args = "resumed imit5_r5b", _lane_args(cut + [
+            "--clips", LANE_CLIPS, "--env-clips", CLIPS15, "--envs", "160",
+            "--resume", CKPT_LANES])
+    else:
+        tag, args = "fresh", _lane_args(cut)
+    env, policy, learner, lane_ids = tool.build(args, "cuda")
+    state = tool.initial_state(args, learner, lane_ids, "cuda")
+    phase = {"rollout": 0.0, "policy update": 0.0, "vf epochs": 0.0}
+    learner._rollout = _timed(learner._rollout, phase, "rollout")
+    learner._policy_update = _timed(learner._policy_update, phase,
+                                    "policy update")
+    learner._vf_update = _timed(learner._vf_update, phase, "vf epochs")
+    if resumed:
+        state, _ = learner.iteration(state)  # warm-up
+        for k in phase:
+            phase[k] = 0.0
+    _zero_counts(ops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, stats = learner.iteration(state)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = _counts(ops)
+    L, E, T = learner.lanes, args.envs, LANE_TRAIN_HORIZON
+    kl = [float(x) for x in stats.meankl.cpu()]
+    flat = lanes.flatten(
+        [x for head in ("pol", "vf") for layer in state.params[head]
+         for x in layer.values()] + [state.params["logstd"]])
+    finite = bool(torch.isfinite(flat).all()) and not lanes.nonfinite_lanes(
+        stats)
+    rec = {"lanes": L, "envs_per_lane": E, "horizon": T,
+           "env_steps_per_s": L * E * T / dt, "iteration_s": dt,
+           "phase_s": dict(phase), "meankl": kl, "finite": finite,
+           "apgd_launches_per_control_step": n["apgd_solve"] / T,
+           "launches": n}
+    print(f"[trpo-lanes] LaneTRPO.iteration {tag}: {L} lanes x {E} envs x "
+          f"{T} steps (horizon cut from 256), g_step 1 (cut from 3)"
+          + (", 1 timed after 1 warm-up" if resumed else ", 1 iteration")
+          + f": {rec['env_steps_per_s']:.1f} env-steps/s summed over lanes, "
+          f"{dt:.3f} s (" + ", ".join(f"{k} {v:.3f} s"
+                                      for k, v in phase.items())
+          + f"); meankl per lane {[round(x, 5) for x in kl]}; every "
+          f"parameter finite {finite}; APGD launches per control step "
+          f"{rec['apgd_launches_per_control_step']:.2f} ({n})")
+    if not (finite and all(0 <= x <= 1.5 * MAX_KL for x in kl)):
+        raise AssertionError(f"[trpo-lanes] {tag}: meankl {kl}, finite "
+                             f"{finite}")
+    if n != {"apgd_solve": 8 * T, "apgd_solve_lanes": 0,
+             "apgd_solve_wide": 0}:
+        raise AssertionError(f"[trpo-lanes] {tag}: APGD launches {n}")
+    return rec
+
+
+def _lane_segment_card_vs_cpu(torch) -> dict:
+    """[trpo-lanes] one lane-batched ``_segment_update`` of 3 lanes of the
+    tool's learner (relu 1024-512, the 15-clip env) on the card and on the
+    CPU, from the same 16-env x 32-step segment per lane (a rollout on the
+    card), params and vf permutations: the same step sizes and acceptance
+    per lane; within max(1, max|x|) times: the policy 1e-4, the losses and
+    the explained variance 1e-4, the value function's predictions on the
+    segment 1e-3, and its parameters 1e-2.  The last is looser: Adam moves
+    a parameter by about its step size (1e-3) whatever the gradient's
+    size, so a gradient at rounding level whose sign differs between the
+    devices moves that parameter apart by up to 2e-3 per minibatch step (12
+    of them here)."""
+    from deepmimic_mujoco_torch.algos import adam, lanes, trpo
+    from deepmimic_mujoco_torch.cli import imitation15_vmapped as tool
+
+    args = _lane_args(["--clips", "walk,spinkick,backflip", "--env-clips",
+                       CLIPS15, "--envs", "16", "--horizon", "32"])
+    L, n = 3, 16 * 32
+    perms = torch.stack([torch.stack([torch.randperm(
+        n, generator=torch.Generator().manual_seed(10 * k + e))
+        for e in range(3)]) for k in range(L)])
+
+    class FixedPerms(trpo.Draws):
+        def __init__(self, k):
+            super().__init__(None)
+            self.k = k
+
+        def vf_permutations(self, n, epochs, device):
+            return perms[self.k].to(device)
+
+    out, seg, p_ref = {}, None, None
+    for dev in ("cuda", "cpu"):
+        env, policy, learner, lane_ids = tool.build(args, dev)
+        st = tool.initial_state(args, learner, lane_ids, dev)
+        if dev == "cuda":
+            p_ref = st.params
+            seg = learner._rollout(st.params, st.env_state, st.new,
+                                   st.draws, st.cur_ep_ret,
+                                   st.cur_ep_len)[0]
+        params = {"pol": [{k: x.to(dev) for k, x in layer.items()}
+                          for layer in p_ref["pol"]],
+                  "vf": [{k: x.to(dev) for k, x in layer.items()}
+                         for layer in p_ref["vf"]],
+                  "logstd": p_ref["logstd"].to(dev),
+                  "ob_rms": type(p_ref["ob_rms"])(
+                      *(x.to(dev) for x in p_ref["ob_rms"]))}
+        res = learner._segment_update(
+            params, adam.AdamState(*(x.to(dev) for x in st.vf_adam)),
+            {k: v.to(dev) for k, v in seg.items()},
+            [FixedPerms(k) for k in range(L)])
+        vpred = policy.value(res[0], lanes.lane_rows(seg["ob"].to(dev), L))
+        out[dev] = (lanes.flatten(trpo.policy_leaves(res[0])).cpu(),
+                    lanes.flatten(trpo.vf_leaves(res[0])).cpu(),
+                    res[2].cpu(), res[3].cpu(), res[4], vpred.cpu())
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+    (pc, vc, lc, ec, ic, vpc), (pp, vp, lp, ep, ip, vpp) = (out["cuda"],
+                                                           out["cpu"])
+    d = {"pol": rel(pc, pp), "losses": rel(lc, lp), "ev": rel(ec, ep),
+         "vf_pred": rel(vpc, vpp), "vf": rel(vc, vp)}
+    bounds = {"pol": 1e-4, "losses": 1e-4, "ev": 1e-4, "vf_pred": 1e-3,
+              "vf": 1e-2}
+    same = (torch.equal(ic.stepsize.cpu(), ip.stepsize)
+            and torch.equal(ic.accepted.cpu(), ip.accepted))
+    print(f"[trpo-lanes] one lane-batched _segment_update, 3 lanes x 16 envs "
+          f"x 32 steps, relu 1024-512, card vs CPU: max diff / max(1, "
+          f"max|x|): " + ", ".join(f"{k} {v:.3e} (bound {bounds[k]:.0e})"
+                                   for k, v in d.items())
+          + f"; step sizes {ic.stepsize.tolist()} / {ip.stepsize.tolist()}, "
+          f"accepted {ic.accepted.tolist()} / {ip.accepted.tolist()}")
+    if not (same and all(d[k] <= bounds[k] for k in d)):
+        raise AssertionError("[trpo-lanes] the card's lane segment update "
+                             "disagrees with the CPU's")
+    return d
+
+
 def _profile(torch, runner, env, policy, params, state, steps: int,
              tag: str) -> dict:
     """A ``torch.profiler`` window of ``steps`` env steps (after 2 warm-up
@@ -921,6 +1275,25 @@ def main() -> int:
                                + imit["train"]["launches"]["apgd_solve"])
     _train_cli(64, recipe=True)
 
+    # the multi-clip path: DPEnvV3Multi card vs CPU, the multi-skill
+    # policy's evaluation, then the TRPO lanes (evaluation, training resumed
+    # and fresh, one segment update card vs CPU); before any profiler
+    # session
+    import tempfile
+
+    multi = {"card_vs_cpu": _multi_card_vs_cpu(torch, ops),
+             "eval_multiskill": _multi_eval(torch, ops)}
+    with tempfile.TemporaryDirectory() as tmp:
+        lanes_rec = {"evaluate": _lane_eval(torch, ops, tmp)}
+    lanes_rec["train_resumed"] = _lane_train(torch, ops, resumed=True)
+    lanes_rec["train_fresh"] = _lane_train(torch, ops, resumed=False)
+    lanes_rec["segment_card_vs_cpu"] = _lane_segment_card_vs_cpu(torch)
+    launches["apgd_solve"] += sum(
+        r["launches"]["apgd_solve"] for r in (
+            multi["card_vs_cpu"], multi["eval_multiskill"],
+            lanes_rec["evaluate"], lanes_rec["train_resumed"],
+            lanes_rec["train_fresh"]))
+
     # one env step's four solves through the dispatch: the wrappers' counts
     # give the launches; profiler windows show what ran on the device (a
     # window may miss a kernel's record, so the most any window saw is read)
@@ -1021,6 +1394,8 @@ def main() -> int:
     kernels[0]["train"] = {str(n): r for n, r in train.items()}
     kernels[0]["train_segment_card_vs_cpu"] = seg_diff
     kernels[0]["imitation"] = imit
+    kernels[0]["multi"] = multi
+    kernels[0]["trpo_lanes"] = lanes_rec
     print(f"[done] {time.perf_counter() - t_start:.1f} s after the imports")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -25,9 +25,11 @@ def update(state: AdamState, flat_grad: torch.Tensor, theta: torch.Tensor,
            stepsize: float, beta1: float = 0.9, beta2: float = 0.999,
            epsilon: float = 1e-8) -> tuple[torch.Tensor, AdamState]:
     """Returns (new_theta, new_state).  The reference's sign convention: it
-    adds ``-a · m/(√v+ε)``.  ``t`` stays a device tensor (no host sync)."""
+    adds ``-a · m/(√v+ε)``.  ``t`` stays a device tensor (no host sync); it
+    is () or, for lane-stacked θ (L, n) (``algos/lanes.py``), (L,)."""
     t = state.t + 1.0
     a = stepsize * torch.sqrt(1.0 - beta2 ** t) / (1.0 - beta1 ** t)
+    a = a.reshape(a.shape + (1,) * (theta.dim() - a.dim()))
     m = beta1 * state.m + (1.0 - beta1) * flat_grad
     v = beta2 * state.v + (1.0 - beta2) * torch.square(flat_grad)
     step = -a * m / (torch.sqrt(v) + epsilon)

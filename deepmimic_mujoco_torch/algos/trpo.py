@@ -58,7 +58,9 @@ class TRPOConfig(NamedTuple):
     vf_batch_size: int = 128
     entcoeff: float = 0.0
     line_search_steps: int = 10
-    reset_mode: str = "noise"     # post-done reset: "noise" or "rsi"
+    # post-done reset: "noise", "rsi", or "rsi_pinned" (RSI that keeps
+    # each env's clip: multi-clip envs, the lanes of per-skill learners)
+    reset_mode: str = "noise"
 
 
 class Draws:
@@ -72,11 +74,16 @@ class Draws:
         return torch.randn(mean.shape, generator=self.generator,
                            device=mean.device, dtype=mean.dtype)
 
-    def fresh_states(self, reset_fn, done: torch.Tensor) -> EnvState:
+    def fresh_states(self, reset_fn, done: torch.Tensor,
+                     state: EnvState | None = None) -> EnvState:
         """Fresh episode starts for all B envs (the rollout keeps those of
         the envs that are ``done``): the draw order does not depend on the
-        data, and nothing is read back to the host."""
-        return reset_fn(self.generator, done.shape[0])
+        data, and nothing is read back to the host.  ``reset_fn(generator,
+        B)``, or ``reset_fn(generator, state)`` when the reset reads the
+        state (``rsi_pinned`` keeps each env's clip)."""
+        if state is None:
+            return reset_fn(self.generator, done.shape[0])
+        return reset_fn(self.generator, state)
 
     def vf_permutations(self, n: int, epochs: int,
                         device: torch.device) -> torch.Tensor:
@@ -127,16 +134,20 @@ class SearchInfo(NamedTuple):
 
 
 def pick_reset_fn(env, reset_mode: str):
-    """Episode-start reset ``(generator, n) → EnvState``: "rsi" = random
-    mocap frame, "noise" = the v3 noise reset.  Unlike the JAX version,
-    which falls back to noise resets for any other string, an unknown mode
-    raises."""
+    """Episode-start reset: "rsi" = random mocap frame, "noise" = the v3
+    noise reset (the env's ``reset`` where it has no ``reset_init``, as
+    ``DPEnvV3Multi``), both ``(generator, n) → EnvState``; "rsi_pinned" =
+    ``env.reset_keep_clip``, ``(generator, state) → EnvState``, a random
+    frame of each env's current clip.  Unlike the JAX version, which falls
+    back to noise resets for any other string, an unknown mode raises."""
     if reset_mode == "rsi":
         return env.reset
     if reset_mode == "noise":
-        return env.reset_init
-    raise ValueError(f"unknown reset_mode {reset_mode!r}; expected 'rsi' or "
-                     "'noise'")
+        return getattr(env, "reset_init", env.reset)
+    if reset_mode == "rsi_pinned":
+        return env.reset_keep_clip
+    raise ValueError(f"unknown reset_mode {reset_mode!r}; expected 'rsi', "
+                     "'noise' or 'rsi_pinned'")
 
 
 # ---------------------------------------------------------------------------
@@ -174,8 +185,9 @@ def _layers(leaves: list[torch.Tensor]) -> list[dict]:
 
 
 class TRPO:
-    """Couples a batched env (``DPEnvV3``), an ``MlpPolicy`` and the TRPO
-    update.  The env's device is the learner's."""
+    """Couples a batched env (``DPEnvV3`` or ``DPEnvV3Multi``), an
+    ``MlpPolicy`` and the TRPO update.  The env's device is the
+    learner's."""
 
     def __init__(self, env, policy, config: TRPOConfig = TRPOConfig()):
         self.env = env
@@ -220,7 +232,10 @@ class TRPO:
             traj["ep_lens"].append(torch.where(done, ep_len, 0))
             ep_ret = torch.where(done, 0.0, ep_ret)
             ep_len = torch.where(done, 0, ep_len)
-            fresh = draws.fresh_states(self._reset_fn, done)
+            if self.cfg.reset_mode == "rsi_pinned":
+                fresh = draws.fresh_states(self._reset_fn, done, nxt)
+            else:
+                fresh = draws.fresh_states(self._reset_fn, done)
             env_state = fresh.where(done, nxt)
             for k, x in zip(keys[:5], (ob, ac, vpred, nxt.reward, new)):
                 traj[k].append(x)

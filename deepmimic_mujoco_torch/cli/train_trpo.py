@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """TRPO training, evaluation and sampling CLI (port of
 ``deepmimic_mujoco_tpu/cli/train_trpo.py`` with its TRPO flags and
-defaults) on single-clip ``DPEnvV3``: every reward mode, torque, PD and
-PD-residual control, both obs modes and both termination rules.  Not
-ported: ``--algo ppo`` and multi-clip ``--motion a,b`` raise
-``NotImplementedError`` naming ROADMAP.md; the JAX CLI's ``--dynamics``,
-``--joint-limits``, ``--warm-iterations`` and ``--clip-weights`` have no
-flag here.
+defaults) on single-clip ``DPEnvV3`` (every reward mode, torque, PD and
+PD-residual control, both obs modes and both termination rules) and, with
+``--motion a,b,...``, on the multi-skill ``DPEnvV3Multi`` (one policy over
+several clips; the JAX CLI's coercions and warnings: PD-residual control,
+an imitation reward, at least 2 substeps, 300-step episodes, the full obs
+and fall-contact termination unless given).  ``--joint-limits mocap``
+widens the hinge ranges to the bundled clips' poses; ``--warm-iterations``
+sets the model's warm-started solve budget; ``--clip-weights`` weights the
+clips' RSI draws.  Not ported: ``--algo ppo`` and ``--dynamics mujoco``
+raise ``NotImplementedError`` naming ROADMAP.md.
 
 Examples:
   python -m deepmimic_mujoco_torch.cli.train_trpo --task train \\
@@ -25,6 +29,12 @@ Examples:
       --n-substeps 2 --max-episode-steps 300 --hidden-sizes 1024,512 \\
       --activation relu --fixed-logstd -3.0 --eval-horizon 300 \\
       --load-model-path train_ckpt_walk_r2/DPEnvV3/trpo-walk-0/trpo_state.npz
+  # one policy over three skills (the multiskill_r4 run's flags)
+  python -m deepmimic_mujoco_torch.cli.train_trpo --task train \\
+      --motion walk,run,spinkick --reward-mode imitation_dm \\
+      --control-mode pd_residual --n-substeps 2 --max-episode-steps 300 \\
+      --reset-mode rsi --gamma 0.95 --lam 0.95 --hidden-sizes 1024,512 \\
+      --activation relu --fixed-logstd -3.0 --clip-weights 1,1,2
 
 Without ``--device cpu`` they run on the CUDA card.
 """
@@ -32,8 +42,10 @@ Without ``--device cpu`` they run on the CUDA card.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
+import warnings
 
 import torch
 
@@ -41,9 +53,13 @@ from deepmimic_mujoco_torch.algos.runner import evaluate
 from deepmimic_mujoco_torch.algos.train_loop import train
 from deepmimic_mujoco_torch.algos.trpo import TRPO, TRPOConfig
 from deepmimic_mujoco_torch.envs.dp_env_v3 import DPEnvV3
+from deepmimic_mujoco_torch.envs.multi_clip import DPEnvV3Multi
 from deepmimic_mujoco_torch.io_utils import checkpoint
 from deepmimic_mujoco_torch.models.policy import MlpPolicy
-from deepmimic_mujoco_torch.physics.humanoid import build_humanoid
+from deepmimic_mujoco_torch.physics.humanoid import (
+    build_humanoid,
+    mocap_hinge_range,
+)
 from deepmimic_mujoco_torch.utils.device import resolve_device
 
 
@@ -108,6 +124,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval-reset", default="rsi", choices=["rsi", "noise"],
                    help="episode starts for evaluate/sample: rsi = random "
                         "mocap frame, noise = the training distribution")
+    p.add_argument("--joint-limits", default="xml", choices=["xml", "mocap"],
+                   help="hinge limit ranges: xml = the reference XML's; "
+                        "mocap = widened to the bundled clips' poses")
+    p.add_argument("--warm-iterations", type=int, default=-1,
+                   help=">=0 sets the model's warm-started solve budget "
+                        "(-1 keeps the default)")
+    p.add_argument("--dynamics", default="torch", choices=["torch", "mujoco"],
+                   help="physics backend (mujoco: not ported)")
+    p.add_argument("--clip-weights", default=None,
+                   help="multi-clip only: comma list of RSI sampling "
+                        "weights per clip, e.g. 1,1,2")
     p.add_argument("--apgd-layout", default="blocks",
                    choices=["blocks", "lanes"],
                    help="layout of the batched APGD kernel on CUDA: blocks = "
@@ -123,6 +150,41 @@ def task_name(args) -> str:
     return f"{args.env_id}/{args.algo}-{motion}-{args.seed}"
 
 
+def make_env(args, model):
+    """``DPEnvV3`` of one clip, or ``DPEnvV3Multi`` for ``--motion a,b``
+    with the JAX CLI's coercions to what the multi-clip env supports (a
+    warning for each explicit flag it overrides)."""
+    if "," not in args.motion:
+        return DPEnvV3(clip=args.motion, model=model,
+                       reward_mode=args.reward_mode,
+                       control_mode=args.control_mode,
+                       n_substeps=args.n_substeps,
+                       max_episode_steps=args.max_episode_steps,
+                       obs_mode=args.obs_mode, termination=args.termination)
+    if args.control_mode == "torque":
+        warnings.warn("multi-clip training requires PD control: "
+                      "--control-mode torque replaced by pd_residual")
+    reward_mode = args.reward_mode
+    if reward_mode in ("alive", "mocap"):
+        if reward_mode != "alive":  # not the default: given explicitly
+            warnings.warn(f"--reward-mode {reward_mode} is not an imitation "
+                          "mode; multi-clip uses imitation_dm")
+        reward_mode = "imitation_dm"
+    if 0 < args.n_substeps < 2:
+        warnings.warn("multi-clip requires >=2 substeps (30 Hz control); "
+                      f"--n-substeps {args.n_substeps} raised to 2")
+    return DPEnvV3Multi(
+        clips=tuple(args.motion.split(",")), model=model,
+        control_mode=(args.control_mode if args.control_mode != "torque"
+                      else "pd_residual"),
+        reward_mode=reward_mode, n_substeps=max(args.n_substeps, 2),
+        max_episode_steps=args.max_episode_steps or 300,
+        obs_mode=args.obs_mode or "full",
+        termination=args.termination or "fall_contact",
+        clip_weights=(tuple(float(w) for w in args.clip_weights.split(","))
+                      if args.clip_weights else None))
+
+
 def main(argv=None):
     """Runs the task; returns the final ``TRPOState`` (train) or the
     ``EvalResult`` (evaluate, sample)."""
@@ -131,16 +193,18 @@ def main(argv=None):
         raise NotImplementedError(
             f"--algo {args.algo} is not ported yet (ROADMAP.md, queue A, "
             "item 'Other learners')")
-    if "," in args.motion:
+    if args.dynamics != "torch":
         raise NotImplementedError(
-            f"--motion {args.motion}: multi-clip training is not ported yet "
-            "(ROADMAP.md, queue A, item 'Multi-clip lanes')")
+            f"--dynamics {args.dynamics} (the host-MuJoCo A/B backend) is not "
+            "ported (ROADMAP.md, queue A, item 'Parity modes and tools')")
     device = resolve_device(args.device)
     model = build_humanoid(apgd_layout=args.apgd_layout, device=device)
-    env = DPEnvV3(clip=args.motion, model=model, reward_mode=args.reward_mode,
-                  control_mode=args.control_mode, n_substeps=args.n_substeps,
-                  max_episode_steps=args.max_episode_steps,
-                  obs_mode=args.obs_mode, termination=args.termination)
+    if args.warm_iterations >= 0:
+        model = dataclasses.replace(model,
+                                    warm_iterations=args.warm_iterations)
+    if args.joint_limits == "mocap":
+        model = mocap_hinge_range(model)
+    env = make_env(args, model)
     hidden_sizes = (tuple(int(h) for h in args.hidden_sizes.split(","))
                     if args.hidden_sizes else None)
     policy = MlpPolicy(ob_dim=env.observation_size, ac_dim=env.action_size,

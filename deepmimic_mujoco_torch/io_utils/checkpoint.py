@@ -15,10 +15,13 @@ flattens it (dataclass fields in order, dict keys sorted):
   then 9 leaves         env_state qpos, qvel, obs, reward (float32), done
                         (bool), mocap_idx, init_idx, step_count (int32),
                         key (B, 2) uint32
+  (then 1 leaf          clip_id (B,) int32, multi-clip envs only)
   then 4 leaves         new (B,) bool, key (2,) uint32, cur_ep_ret (B,)
                         float32, cur_ep_len (B,) int32
 
-(leaf_0..15 hold the policy for L = 3.)"""
+(leaf_0..15 hold the policy for L = 3.)  A file of independent learners
+(the lane tool's ``imit15_state.npz``) has the same leaves with every leaf
+stacked on a new leading lane axis, under the same structure string."""
 
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from deepmimic_mujoco_torch.algos import adam
+from deepmimic_mujoco_torch.algos.lanes import LaneState
 from deepmimic_mujoco_torch.algos.trpo import TRPO, Draws, TRPOState
 from deepmimic_mujoco_torch.envs.types import EnvState
 from deepmimic_mujoco_torch.models.policy import MlpPolicy
@@ -38,13 +42,15 @@ _ENV_FIELDS = ("qpos", "qvel", "obs", "reward", "done", "mocap_idx",
                "init_idx", "step_count")
 
 
-def trpo_state_treedef(n_layers: int = 3, clip_id: bool = True) -> str:
+def trpo_state_treedef(n_layers: int = 3, clip_id: str = "none") -> str:
     """The structure string of a JAX ``TRPOState`` whose MLPs have
     ``n_layers`` layers.  ``EnvState`` gained a trailing ``clip_id`` field
-    (None for single-clip envs) after the bundled checkpoints were written:
-    ``clip_id=False`` gives their older string."""
+    after the bundled single-clip checkpoints were written: ``clip_id`` is
+    "absent" for their older string, "none" for a single-clip env's state
+    (the field is None) and "array" for a multi-clip env's."""
     mlp = "[" + ", ".join(["{'b': *, 'w': *}"] * n_layers) + "]"
-    env = ", ".join(["*"] * 9) + (", None" if clip_id else "")
+    env = ", ".join(["*"] * 9) + {"absent": "", "none": ", None",
+                                  "array": ", *"}[clip_id]
     return ("PyTreeDef(CustomNode(TRPOState[()], [{'logstd': *, 'ob_rms': "
             "CustomNode(namedtuple[RunningMeanStd], [*, *, *]), "
             f"'pol': {mlp}, 'vf': {mlp}}}, "
@@ -52,9 +58,7 @@ def trpo_state_treedef(n_layers: int = 3, clip_id: bool = True) -> str:
             f"CustomNode(EnvState[()], [{env}]), *, *, *, *]))")
 
 
-# the structures of a 3-layer MlpPolicy's TRPOState, before and after
-# clip_id; the policy leaves come first and sit at the same positions
-TRPO_STATE_TREEDEFS = (trpo_state_treedef(3, False), trpo_state_treedef(3))
+_CLIP_ID_FORMS = ("absent", "none", "array")
 
 
 def from_numpy_params(params: dict, device: torch.device | str) -> dict:
@@ -84,47 +88,77 @@ def from_numpy_state(state, draws: Draws,
         return torch.as_tensor(np.asarray(x), device=device).to(dtype)
 
     m, v, step = state.vf_adam
-    es = state.env_state
-    f32, i64 = torch.float32, torch.int64
+    f32 = torch.float32
     return TRPOState(
         params=from_numpy_params(state.params, device),
         vf_adam=adam.AdamState(t(m, f32), t(v, f32), t(step, f32)),
-        env_state=EnvState(**{
-            f: t(getattr(es, f), {"done": torch.bool}.get(
-                f, i64 if f in _ENV_FIELDS[5:] else f32))
-            for f in _ENV_FIELDS}),
+        env_state=_env_state(state.env_state, device),
         new=t(state.new, torch.bool), draws=draws,
         cur_ep_ret=t(state.cur_ep_ret, f32),
         cur_ep_len=t(state.cur_ep_len, torch.int32))
 
 
-def _read(path: str, policy: MlpPolicy) -> tuple[list, str]:
+def _env_state(es, device: torch.device | str) -> EnvState:
+    """numpy env leaves (a namespace with the ``EnvState`` fields; clip_id
+    None or absent for single-clip envs) → the port's ``EnvState``."""
+    def t(x, dtype):
+        return torch.as_tensor(np.asarray(x), device=device).to(dtype)
+
+    f32, i64 = torch.float32, torch.int64
+    clip_id = getattr(es, "clip_id", None)
+    return EnvState(
+        **{f: t(getattr(es, f), {"done": torch.bool}.get(
+            f, i64 if f in _ENV_FIELDS[5:] else f32)) for f in _ENV_FIELDS},
+        clip_id=None if clip_id is None else t(clip_id, i64))
+
+
+def _read(path: str, policy: MlpPolicy, lanes: bool = False
+          ) -> tuple[list, str]:
     """All leaves of a TRPOState checkpoint of ``policy``'s depth, checked
-    against its structure string and ``policy``'s shapes."""
+    against its structure string and ``policy``'s shapes; ``lanes``: a file
+    of independent learners, every leaf with a leading lane axis."""
     n_layers = len(policy.sizes)
     with np.load(path, allow_pickle=False) as z:
         treedef = bytes(z["__treedef__"]).decode()
-        accepted = (trpo_state_treedef(n_layers, False),
-                    trpo_state_treedef(n_layers))
+        accepted = [trpo_state_treedef(n_layers, c) for c in _CLIP_ID_FORMS]
         if treedef not in accepted:
             raise ValueError(
                 f"{path!r} is not a TRPOState checkpoint of a "
                 f"{n_layers}-layer MlpPolicy:\n  saved:    {treedef}\n"
-                f"  expected: {accepted[1]}")
+                f"  expected: {accepted[1]}\n  or:       {accepted[2]}")
         leaves = [z[f"leaf_{i}"] for i in range(len(z.files) - 1)]
     sizes = policy.sizes
+    lead = leaves[0].shape[:1] if lanes else ()
     pol = leaves[4:4 + 2 * n_layers]
     vf = leaves[4 + 2 * n_layers:4 + 4 * n_layers]
     for head, flat, out in (("pol", pol, policy.ac_dim), ("vf", vf, 1)):
         for k, (n_in, n_out) in enumerate(zip(sizes, sizes[1:] + [out])):
             b, w = flat[2 * k], flat[2 * k + 1]
-            if w.shape != (n_in, n_out) or b.shape != (n_out,):
+            if w.shape != lead + (n_in, n_out) or b.shape != lead + (n_out,):
                 raise ValueError(
                     f"{path!r}: {head} layer {k} has w {w.shape}, b {b.shape};"
-                    f" the policy expects ({n_in}, {n_out}), ({n_out},)")
-    if leaves[0].shape != (policy.ac_dim,):
+                    f" the policy expects {lead + (n_in, n_out)}, "
+                    f"{lead + (n_out,)}")
+    if leaves[0].shape != lead + (policy.ac_dim,):
         raise ValueError(f"{path!r}: logstd shape {leaves[0].shape}")
     return leaves, treedef
+
+
+def _layout(leaves: list, n_layers: int) -> types.SimpleNamespace:
+    """The leaves of a TRPOState (or of a lane file) as a namespace with
+    the JAX state's fields; ``env_state.clip_id`` is None where the file
+    has no clip_id leaf."""
+    n = 4 + 4 * n_layers
+    n_env = len(leaves) - n - 3 - 4   # 9, or 10 with clip_id
+    env = dict(zip(_ENV_FIELDS, leaves[n + 3:n + 11]))
+    env["key"] = leaves[n + 11]
+    env["clip_id"] = leaves[n + 12] if n_env == 10 else None
+    rest = n + 3 + n_env
+    return types.SimpleNamespace(
+        params=_params(leaves, n_layers), vf_adam=tuple(leaves[n:n + 3]),
+        env_state=types.SimpleNamespace(**env), new=leaves[rest],
+        key=leaves[rest + 1], cur_ep_ret=leaves[rest + 2],
+        cur_ep_len=leaves[rest + 3])
 
 
 def _params(leaves: list, n_layers: int) -> dict:
@@ -152,45 +186,128 @@ def load_trpo_state(path: str, learner: TRPO, draws: Draws) -> TRPOState:
     state, ``new`` and the episode accounting.  The checkpoint's PRNG keys
     are not read: ``draws`` gives the port's random draws."""
     leaves, _ = _read(path, learner.policy)
-    n = 4 + 4 * len(learner.policy.sizes)
-    env = leaves[n + 3:n + 12]
-    if env[0].shape[0] != learner.cfg.num_envs:
-        raise ValueError(f"{path!r} holds {env[0].shape[0]} envs; the "
-                         f"learner runs {learner.cfg.num_envs}")
-    state = types.SimpleNamespace(
-        params=_params(leaves, len(learner.policy.sizes)),
-        vf_adam=tuple(leaves[n:n + 3]),
-        env_state=types.SimpleNamespace(**dict(zip(_ENV_FIELDS, env))),
-        new=leaves[n + 12], cur_ep_ret=leaves[n + 14],
-        cur_ep_len=leaves[n + 15])
+    state = _layout(leaves, len(learner.policy.sizes))
+    n_envs = state.env_state.qpos.shape[0]
+    if n_envs != learner.cfg.num_envs:
+        raise ValueError(f"{path!r} holds {n_envs} envs; the learner runs "
+                         f"{learner.cfg.num_envs}")
     return from_numpy_state(state, draws, learner.device)
 
 
-def save(path: str, state: TRPOState) -> str:
-    """Write ``state`` to ``<path>.npz`` in the JAX layout, under the
-    structure string of the current JAX ``TRPOState`` (``clip_id`` None),
-    with JAX's dtypes.  The port has no JAX PRNG keys: it writes distinct
-    raw threefry keys in the layout of ``jax.random.PRNGKey(k)``, ``[0, k]``
-    — env e's key is ``[0, e]``, the state's ``[0, B]``.  Returns the
-    file's path."""
-    def np_(x, dtype=np.float32):
-        return x.detach().cpu().numpy().astype(dtype)
+def _np(x, dtype=np.float32):
+    return x.detach().cpu().numpy().astype(dtype)
 
-    p, es = state.params, state.env_state
-    B = es.qpos.shape[0]
-    mlp = [x for head in ("pol", "vf") for layer in p[head]
-           for x in (layer["b"], layer["w"])]
-    leaves = ([p["logstd"], *p["ob_rms"], *mlp, *state.vf_adam]
-              + [getattr(es, f) for f in _ENV_FIELDS[:4]])
-    leaves = [np_(x) for x in leaves] + [
-        np_(es.done, np.bool_),
-        *(np_(getattr(es, f), np.int32) for f in _ENV_FIELDS[5:]),
-        np.stack([np.zeros(B, np.uint32), np.arange(B, dtype=np.uint32)], 1),
-        np_(state.new, np.bool_), np.array([0, B], np.uint32),
-        np_(state.cur_ep_ret), np_(state.cur_ep_len, np.int32)]
-    treedef = trpo_state_treedef(len(p["pol"]))
+
+def _state_leaves(params: dict, vf_adam, es: EnvState, new, cur_ep_ret,
+                  cur_ep_len, lead: tuple) -> list:
+    """The leaves of a TRPOState in JAX's order and dtypes, every leaf with
+    the leading shape ``lead`` (() or (L,)).  The port has no JAX PRNG
+    keys: it writes distinct raw threefry keys in the layout of
+    ``jax.random.PRNGKey(k)``, ``[0, k]`` — env e's key is ``[0, e]``, the
+    state's ``[0, B]`` (per lane)."""
+    B = new.shape[-1]
+    rms = params["ob_rms"]
+    # lane-stacked params keep (L, 1, ·) broadcast axes: they go
+    sq = (lambda x: x[:, 0]) if lead else (lambda x: x)
+    leaves = [sq(params["logstd"]), sq(rms.mean), sq(rms.var),
+              rms.count.reshape(lead)]
+    leaves += [x for head in ("pol", "vf") for layer in params[head]
+               for x in (sq(layer["b"]), layer["w"])]
+    leaves = [_np(x) for x in leaves + list(vf_adam)]
+    env = [_np(getattr(es, f)).reshape(lead + (B,) + tuple(
+        getattr(es, f).shape[1:])) for f in _ENV_FIELDS[:4]]
+    env += [_np(es.done, np.bool_).reshape(lead + (B,))]
+    env += [_np(getattr(es, f), np.int32).reshape(lead + (B,))
+            for f in _ENV_FIELDS[5:]]
+    keys = np.stack([np.zeros(B, np.uint32), np.arange(B, dtype=np.uint32)], 1)
+    env.append(np.broadcast_to(keys, lead + (B, 2)).copy())
+    if es.clip_id is not None:
+        env.append(_np(es.clip_id, np.int32).reshape(lead + (B,)))
+    return leaves + env + [
+        _np(new, np.bool_),
+        np.broadcast_to(np.array([0, B], np.uint32), lead + (2,)).copy(),
+        _np(cur_ep_ret), _np(cur_ep_len, np.int32)]
+
+
+def _write(path: str, leaves: list, treedef: str) -> str:
     path = path if path.endswith(".npz") else path + ".npz"
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     np.savez(path, __treedef__=np.frombuffer(treedef.encode(), np.uint8),
              **{f"leaf_{i}": x for i, x in enumerate(leaves)})
     return path
+
+
+def save(path: str, state) -> str:
+    """Write a ``TRPOState``, or a ``LaneState`` of independent learners
+    (``algos/lanes.py``), to ``<path>.npz`` in the JAX layout: a lane
+    state as the lane tool writes its ``imit15_state.npz``, every leaf
+    stacked over the lanes on axis 0.  The structure string is the current
+    JAX ``TRPOState``'s (``clip_id`` None, or an array for a multi-clip
+    env), the dtypes JAX's.  Returns the file's path."""
+    es = state.env_state
+    leaves = _state_leaves(state.params, state.vf_adam, es, state.new,
+                           state.cur_ep_ret, state.cur_ep_len,
+                           tuple(state.new.shape[:-1]))
+    form = "none" if es.clip_id is None else "array"
+    return _write(path, leaves, trpo_state_treedef(len(state.params["pol"]),
+                                                   form))
+
+
+def read_lanes(path: str, policy: MlpPolicy) -> types.SimpleNamespace:
+    """The raw numpy leaves of a lane file (every leaf (L, ...)), laid out
+    as the JAX state's fields, checked against ``policy``'s shapes."""
+    leaves, _ = _read(path, policy, lanes=True)
+    return _layout(leaves, len(policy.sizes))
+
+
+def _lane_params(raw, idx, device):
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32)[idx], device=device)
+
+    p = raw.params
+    mean, var, count = p["ob_rms"]
+    params = {
+        "pol": [{"w": t(x["w"]), "b": t(x["b"])[:, None]} for x in p["pol"]],
+        "vf": [{"w": t(x["w"]), "b": t(x["b"])[:, None]} for x in p["vf"]],
+        "logstd": t(p["logstd"])[:, None],
+        "ob_rms": RunningMeanStd(t(mean)[:, None], t(var)[:, None],
+                                 t(count).reshape(-1, 1, 1))}
+    return params, adam.AdamState(*(t(x) for x in raw.vf_adam))
+
+
+def load_lane_params(path: str, policy: MlpPolicy,
+                     device: torch.device | str, lanes=None):
+    """(params, vf_adam) of the lanes ``lanes`` (all when None) of a lane
+    file, lane-stacked as ``algos/lanes.py`` keeps them (biases, logstd and
+    obs-RMS as (L, 1, ·)).  The lane tool's ``--resume-lanes`` surgery
+    moves these and not the env batches."""
+    raw = read_lanes(path, policy)
+    idx = list(range(raw.new.shape[0]) if lanes is None else lanes)
+    return _lane_params(raw, idx, device)
+
+
+def load_lane_state(path: str, learner, draws: list) -> LaneState:
+    """The whole state of a lane file for a ``LaneTRPO`` of the same lane
+    and env counts: params, ``vf_adam``, the (L·E) env state, ``new`` and
+    the episode accounting.  ``draws`` (one per lane) give the random
+    draws."""
+    raw = read_lanes(path, learner.policy)
+    L, E = raw.new.shape
+    if (L, E) != (learner.lanes, learner.cfg.num_envs):
+        raise ValueError(f"{path!r} holds {L} lanes x {E} envs; the learner "
+                         f"runs {learner.lanes} x {learner.cfg.num_envs}")
+    dev = learner.device
+    params, vf_adam = _lane_params(raw, list(range(L)), dev)
+    es = types.SimpleNamespace(**{
+        f: None if x is None else np.asarray(x).reshape(
+            (L * E,) + np.shape(x)[2:])
+        for f, x in vars(raw.env_state).items()})
+
+    def t(x, dtype):
+        return torch.as_tensor(np.asarray(x), device=dev).to(dtype)
+
+    return LaneState(params=params, vf_adam=vf_adam,
+                     env_state=_env_state(es, dev),
+                     new=t(raw.new, torch.bool), draws=list(draws),
+                     cur_ep_ret=t(raw.cur_ep_ret, torch.float32),
+                     cur_ep_len=t(raw.cur_ep_len, torch.int32))

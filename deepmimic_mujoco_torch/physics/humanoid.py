@@ -132,3 +132,30 @@ def build_humanoid(dt: float = 0.0166, integrator: str = "rk4",
         warm_iterations=warm_iterations, solver_dtype=solver_dtype,
         stage_reuse=stage_reuse, stage_iterations=stage_iterations,
         apgd_layout=apgd_layout)
+
+
+def mocap_hinge_range(model: PhysicsModel | None = None, clips=None,
+                      margin: float = 0.1,
+                      device: torch.device | str | None = None
+                      ) -> PhysicsModel:
+    """The model with its hinge limit ranges widened to the union of the
+    bundled clips' continuous pose tracks ± ``margin`` (never narrowed):
+    the reference XML's ranges exclude poses of its own acrobatic clips
+    (spinkick, backflip), and the limit rows then fight the PD controller.
+    ``clips`` defaults to every bundled clip.  The returned model is on
+    ``model``'s device (``build_humanoid(device=device)`` when ``model`` is
+    None).  Port of ``deepmimic_mujoco_tpu/physics/humanoid.py:
+    mocap_hinge_range``; the recipe opts in with ``--joint-limits mocap``."""
+    import numpy as np
+
+    from deepmimic_mujoco_torch.mocap.registry import available_clips, get_clip
+
+    if model is None:
+        model = build_humanoid(device=device)
+    rng = model.hinge_range.cpu().numpy().copy()
+    for name in (clips if clips is not None else available_clips()):
+        t = get_clip(name).qpos_cont[:, 7:]
+        rng[:, 0] = np.minimum(rng[:, 0], t.min(0) - margin)
+        rng[:, 1] = np.maximum(rng[:, 1], t.max(0) + margin)
+    return dataclasses.replace(model, hinge_range=torch.as_tensor(
+        rng, dtype=torch.float32, device=model.device))

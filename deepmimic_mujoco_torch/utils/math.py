@@ -7,11 +7,12 @@ from __future__ import annotations
 import torch
 
 
-def explained_variance(ypred: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """1 - Var[y - ypred]/Var[y]; NaN when Var[y] == 0, like the
-    reference."""
-    vary = torch.var(y, correction=0)
-    return 1.0 - torch.var(y - ypred, correction=0) / vary
+def explained_variance(ypred: torch.Tensor, y: torch.Tensor,
+                       dim: int | None = None) -> torch.Tensor:
+    """1 - Var[y - ypred]/Var[y] (over ``dim``, all axes when None); NaN
+    when Var[y] == 0, like the reference."""
+    vary = torch.var(y, dim=dim, correction=0)
+    return 1.0 - torch.var(y - ypred, dim=dim, correction=0) / vary
 
 
 def discount(x: torch.Tensor, gamma: float) -> torch.Tensor:

@@ -37,12 +37,15 @@ def normalize(rms: RunningMeanStd, x: torch.Tensor, clip: float = 5.0
 
 def update(rms: RunningMeanStd, batch: torch.Tensor) -> RunningMeanStd:
     """Chan et al. parallel update from a batch (leading axis = samples).
-    The batch variance is ``sq/n - mean²``, as in the JAX version."""
-    batch = batch.reshape((-1,) + tuple(rms.mean.shape))
-    n = float(batch.shape[0])
-    batch_mean = torch.sum(batch, dim=0) / n
-    batch_var = torch.sum(torch.square(batch), dim=0) / n - torch.square(
-        batch_mean)
+    The batch variance is ``sq/n - mean²``, as in the JAX version.
+    Lane-stacked stats (mean (L, 1, d), count (L, 1, 1); ``algos/lanes.py``)
+    update each lane from its own samples, batch (L, n, d)."""
+    lead, d = tuple(rms.mean.shape[:-2]), rms.mean.shape[-1]
+    batch = batch.reshape(lead + (-1, d))
+    n = float(batch.shape[-2])
+    batch_mean = (torch.sum(batch, dim=-2) / n).reshape(rms.mean.shape)
+    batch_var = (torch.sum(torch.square(batch), dim=-2) / n).reshape(
+        rms.mean.shape) - torch.square(batch_mean)
     delta = batch_mean - rms.mean
     tot = rms.count + n
     new_mean = rms.mean + delta * n / tot

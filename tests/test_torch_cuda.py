@@ -288,3 +288,107 @@ def test_imitation_recipe_on_the_card_matches_the_cpu(cuda):
                                out["cpu"].state.qpos, atol=1e-3, rtol=0)
     torch.testing.assert_close(out["cuda"].traj[2].cpu(), out["cpu"].traj[2],
                                atol=1e-3, rtol=0)
+
+
+MULTI_CLIPS = ("walk", "run", "spinkick", "backflip", "getup_facedown")
+
+
+def test_multi_clip_env_on_the_card_matches_the_cpu(cuda):
+    """16 envs of ``DPEnvV3Multi`` spread over five clips (mocap joint
+    limits, the lane tool's recipe), 20 steps of the same seeded actions:
+    on the card 8 ``apgd_solve`` launches per control step and nothing
+    else; against the CPU (plain version) qpos, obs and rewards within
+    1e-4 at every step and equal done flags."""
+    from deepmimic_mujoco_torch.envs.multi_clip import DPEnvV3Multi
+    from deepmimic_mujoco_torch.physics.humanoid import mocap_hinge_range
+
+    gen = torch.Generator().manual_seed(0)
+    acts = 0.1 * torch.randn((20, 16, 28), generator=gen)
+    cid = torch.arange(16) % 5
+    out = {}
+    for dev in ("cuda", "cpu"):
+        env = DPEnvV3Multi(clips=MULTI_CLIPS,
+                           model=mocap_hinge_range(device=dev))
+        s = env.reset_at(cid, (torch.arange(16) * 7) % env.clip_lens[
+            cid.to(dev)].cpu())
+        n0 = (ops.apgd_solve.launches, ops.apgd_solve_lanes.launches,
+              ops.apgd_solve_wide.launches)
+        rec = []
+        for a in acts:
+            s = env.step(s, a.to(dev))
+            rec.append((s.qpos.cpu(), s.obs.cpu(), s.reward.cpu(),
+                        s.done.cpu()))
+        if dev == "cuda":
+            assert (ops.apgd_solve.launches - n0[0],
+                    ops.apgd_solve_lanes.launches - n0[1],
+                    ops.apgd_solve_wide.launches - n0[2]) == (8 * 20, 0, 0)
+        out[dev] = rec
+    for (qc, oc, rc, dc), (qp, op, rp, dp) in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(qc, qp, atol=1e-4, rtol=0)
+        torch.testing.assert_close(oc, op, atol=1e-4, rtol=0)
+        torch.testing.assert_close(rc, rp, atol=1e-4, rtol=0)
+        assert torch.equal(dc, dp)
+
+
+def test_lane_segment_update_on_the_card_matches_the_cpu(cuda):
+    """One lane-batched ``_segment_update`` of 3 lanes (relu 64-32 nets)
+    from the same segment (a 16-env x 16-step rollout per lane on the
+    card), params and vf permutations, on the card and on the CPU: the same
+    step size and acceptance per lane, the policy within 1e-4 and the vf
+    within 1e-3 of max(1, max|x|), the losses within 1e-4."""
+    from deepmimic_mujoco_torch.algos import adam, lanes, trpo
+    from deepmimic_mujoco_torch.envs.multi_clip import DPEnvV3Multi
+    from deepmimic_mujoco_torch.physics.humanoid import mocap_hinge_range
+
+    L, E, T = 3, 16, 16
+    perms = torch.stack([torch.randperm(E * T, generator=torch.Generator()
+                                        .manual_seed(k))[None]
+                         for k in range(L)])
+
+    class FixedPerms(trpo.Draws):
+        def __init__(self, k):
+            super().__init__(None)
+            self.k = k
+
+        def vf_permutations(self, n, epochs, device):
+            return perms[self.k].to(device)
+
+    out, seg = {}, None
+    for dev in ("cuda", "cpu"):
+        env = DPEnvV3Multi(clips=MULTI_CLIPS,
+                           model=mocap_hinge_range(device=dev))
+        policy = MlpPolicy(ob_dim=env.observation_size, ac_dim=28,
+                           hidden_sizes=(64, 32), activation="relu",
+                           fixed_logstd=-3.0)
+        learner = lanes.LaneTRPO(env, policy, trpo.TRPOConfig(
+            horizon=T, num_envs=E, vf_iters=1, reset_mode="rsi_pinned"),
+            lanes=L)
+        gens = [torch.Generator(device=dev).manual_seed(k) for k in range(L)]
+        st = learner.init(gens, [0, 2, 3])
+        if dev == "cuda":
+            p_ref = st.params
+            seg = learner._rollout(st.params, st.env_state, st.new,
+                                   st.draws, st.cur_ep_ret,
+                                   st.cur_ep_len)[0]
+        params = {"pol": [{k: x.to(dev) for k, x in layer.items()}
+                          for layer in p_ref["pol"]],
+                  "vf": [{k: x.to(dev) for k, x in layer.items()}
+                         for layer in p_ref["vf"]],
+                  "logstd": p_ref["logstd"].to(dev),
+                  "ob_rms": type(p_ref["ob_rms"])(
+                      *(x.to(dev) for x in p_ref["ob_rms"]))}
+        res = learner._segment_update(
+            params, adam.AdamState(*(x.to(dev) for x in st.vf_adam)),
+            {k: v.to(dev) for k, v in seg.items()},
+            [FixedPerms(k) for k in range(L)])
+        out[dev] = (lanes.flatten(trpo.policy_leaves(res[0])).cpu(),
+                    lanes.flatten(trpo.vf_leaves(res[0])).cpu(),
+                    res[2].cpu(), res[4])
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+    (pc, vc, lc, ic), (pp, vp, lp, ip) = out["cuda"], out["cpu"]
+    assert torch.equal(ic.stepsize.cpu(), ip.stepsize)
+    assert torch.equal(ic.accepted.cpu(), ip.accepted)
+    assert rel(pc, pp) <= 1e-4 and rel(vc, vp) <= 1e-3 and rel(lc, lp) <= 1e-4

@@ -16,9 +16,10 @@ import pytest
 ROOT = os.path.normpath(os.path.join(os.path.dirname(__file__), ".."))
 FORBIDDEN = ("jax", "jaxlib", "mujoco", "deepmimic_mujoco_tpu")
 
-_BLOCKER = f"""
+_BLOCKER = """
 import runpy, sys
-FORBIDDEN = {FORBIDDEN!r}
+FORBIDDEN = {forbidden!r}
+TMP = {tmp!r}
 
 class Refuse:
     def find_spec(self, name, path=None, target=None):
@@ -30,16 +31,25 @@ sys.meta_path.insert(0, Refuse())
 sys.argv = ["train_trpo", "--task", "evaluate", "--device", "cpu",
             "--eval-episodes", "2", "--eval-horizon", "3"]
 runpy.run_module("deepmimic_mujoco_torch.cli.train_trpo", run_name="__main__")
+sys.argv = ["imitation15_vmapped", "--eval-only", "--device", "cpu",
+            "--clips", "walk,kick", "--envs", "2", "--hidden-sizes", "16",
+            "--eval-episodes", "2", "--eval-horizon", "3",
+            "--out", TMP + "/out.json", "--ckpt-root", TMP + "/ckpt",
+            "--log-root", TMP + "/logs"]
+runpy.run_module("deepmimic_mujoco_torch.cli.imitation15_vmapped",
+                 run_name="__main__")
 assert not [m for m in sys.modules if m.split(".")[0] in FORBIDDEN]
 """
 
 
-def test_cli_evaluate_runs_with_jax_and_mujoco_refused():
+def test_cli_evaluate_runs_with_jax_and_mujoco_refused(tmp_path):
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
-    proc = subprocess.run([sys.executable, "-c", _BLOCKER], cwd=ROOT, env=env,
+    code = _BLOCKER.format(forbidden=FORBIDDEN, tmp=str(tmp_path))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "Average length: 3.0" in proc.stdout
+    assert "| kick |" in proc.stdout and (tmp_path / "out.json").exists()
 
 
 def _sources():

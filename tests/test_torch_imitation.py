@@ -602,8 +602,38 @@ def test_rsi_resets_in_the_rollout_carry_the_cursor(recipe_envs):
                                rtol=0, atol=0)
 
 
-def test_cli_multi_clip_motion_raises():
-    """Multi-clip training (``--motion a,b``) is a later slice."""
+CKPT_MULTI_R4 = os.path.join(os.path.dirname(__file__), "..",
+                             "train_ckpt_multiskill_r4", "DPEnvV3",
+                             "trpo-walk+run+spinkick-0", "trpo_state.npz")
+
+
+def test_cli_multi_clip_motion_trains_and_evaluates(tmp_path):
+    """Multi-clip ``--motion a,b``: one training iteration of walk+run at
+    2 envs x 8 steps on the coerced env (PD-residual control, 2 substeps,
+    an imitation reward; warnings for the overridden torque control and
+    substeps), whose checkpoint carries the clip ids and reads back; and
+    the bundled multiskill_r4 policy (walk, run, spinkick; 71-D obs)
+    evaluated for 2 episodes x 5 steps.  ``--dynamics mujoco`` raises,
+    naming ROADMAP.md."""
+    with pytest.warns(UserWarning, match="pd_residual"):
+        state = train_trpo.main([
+            "--task", "train", "--device", "cpu", "--motion", "walk,run",
+            "--num-iters", "1", "--num-envs", "2", "--timesteps-per-batch",
+            "8", "--g-step", "1", "--hidden-sizes", "16",
+            "--log-dir", str(tmp_path / "logs"),
+            "--checkpoint-dir", str(tmp_path / "ckpt")])
+    assert state.env_state.obs.shape == (2, 2 + 1 + 11 + 56)
+    assert set(state.env_state.clip_id.tolist()) <= {0, 1}
+    path = str(tmp_path / "ckpt" / "DPEnvV3" / "trpo-walk+run-0" /
+               "trpo_state.npz")
+    with np.load(path) as z:
+        assert bytes(z["__treedef__"]).decode() == \
+            checkpoint.trpo_state_treedef(2, "array")
+    res = train_trpo.main([
+        "--task", "evaluate", "--device", "cpu", "--motion",
+        "walk,run,spinkick", "--eval-episodes", "2", "--eval-horizon", "5",
+        "--load-model-path", CKPT_MULTI_R4, *RECIPE_FLAGS])
+    assert res.avg_len == 5 and 0.5 < res.avg_ret < 5.0
+    assert res.rollout.state.obs.shape == (2, 71)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_trpo.main(["--motion", "walk,run", "--device", "cpu",
-                         *RECIPE_FLAGS])
+        train_trpo.main(["--dynamics", "mujoco", "--device", "cpu"])
