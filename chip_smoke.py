@@ -66,7 +66,24 @@ Phases, each printing its lines before the last:
    one timed ``LaneTRPO.iteration`` of its 5 lanes x 160 envs resumed from
    it and one of 15 fresh lanes x 64 envs (horizon 32, g_step 1), and one
    lane-batched segment update of 3 lanes on the card against the CPU; then
-   profiler windows of one env step's
+   [gail], GAIL from the bundled r4 run (``train_ckpt_gail_r4``: the recipe
+   with the full obs, a tanh 100x2 policy with a learned logstd, its
+   discriminator and the expert cursor, read by ``load_gail_state``): its
+   policy over 64 RSI episodes x 300 steps from fixed frames (within 0.03
+   reward per step and 5% EpLen of the port's CPU figure, 8 ``apgd_solve``
+   launches per control step), one timed ``GAIL.iteration`` resumed from
+   its whole state at 64 envs x 32 steps x g_step 3 (env-steps/s, the
+   rollout, policy update, vf epochs and d-step seconds, DLoss, GenAcc,
+   ExpertAcc, EpTrueRewMean, meankl ≤ 1.5·max_kl, 8 launches per control
+   step), one d-step and segment update on the card against the CPU, and
+   ``python -m deepmimic_mujoco_torch.cli.train_gail`` with the run's flags
+   at 64 envs, 200 BC steps and 2 iterations (the BC loss goes down, the
+   checkpoint reads back); then [ppo]: ``cli.train_trpo --algo ppo --task
+   train`` in-process at 4096 envs x 64 steps for 2 iterations (env-steps/s,
+   rollout and update seconds, finite losses, 4 launches per env step) and
+   one ``PPO.iteration`` on the card against the CPU with the CPU run's
+   draws replayed; all before any profiler session; then profiler windows
+   of one env step's
    four solves through ``apgd()`` (blocks: four kernels and nothing else),
    and ``torch.profiler`` windows of 5 env steps at 4096 envs and of 3
    recipe steps at 4096 envs (step time, device busy share, kernel
@@ -162,6 +179,26 @@ CPU_LANES = {"walk": (300.0, 0.817), "run": (283.3, 0.506),
 CPU_MULTI = {"walk": (271.1, 0.765), "run": (26.9, 0.253),
              "spinkick": (22.7, 0.159)}
 LANE_TRAIN_HORIZON = 32      # the tool's 256, cut
+
+# the GAIL path: the bundled r4 run (tools/r4_chain.sh: the recipe with the
+# full obs, 64 envs, the GAIL CLI's defaults, a tanh 100x2 policy with a
+# learned logstd) and its expert (64 episodes x 300 steps of 68-D obs)
+CKPT_GAIL = os.path.join(ROOT, "train_ckpt_gail_r4", "DPEnvV3", "gail-walk-0",
+                         "gail_state.npz")
+EXPERT = os.path.join(ROOT, "assets", "expert", "walk_expert.npz")
+GAIL_FLAGS = ["--expert-path", EXPERT, "--motion", "walk", "--reward-mode",
+              "imitation_dm", "--control-mode", "pd_residual", "--reset-mode",
+              "rsi", "--n-substeps", "2", "--max-episode-steps", "300",
+              "--obs-mode", "full"]
+GAIL_TRAIN_HORIZON = 32      # the run's 1024, cut
+# the 64 start frames that JAX's runner.evaluate draws from PRNGKey(0)
+GAIL_FRAMES = ("9,28,25,11,24,0,27,28,18,29,21,33,11,37,4,35,4,10,5,14,33,26,"
+               "8,16,36,0,9,7,10,3,14,34,37,34,18,37,27,17,13,2,1,13,8,7,2,"
+               "23,22,12,25,10,29,24,1,5,38,6,27,20,32,1,26,38,31,14")
+# (EpLen mean, reward per step) of the port on the CPU on those episodes
+# (tests/test_torch_gail.py::test_gail_r4_64_episodes_match_jax, which
+# holds them against JAX's runner.evaluate: 299.33, 0.1562)
+CPU_GAIL = (298.33, 0.1634)
 
 
 def _problem(torch, B: int, a_dtype, gen, nc: int = NC, nl: int = NL):
@@ -991,6 +1028,426 @@ def _lane_segment_card_vs_cpu(torch) -> dict:
     return d
 
 
+# ---------------------------------------------------------------------------
+# GAIL (the bundled r4 run) and vectorized PPO
+
+
+def _gail_learner(n_envs: int, horizon: int, device: str = "cuda",
+                  d_step: int = 1):
+    """The r4 run's learner (``tools/r4_chain.sh``: the recipe env with the
+    full obs, a tanh 100x2 policy with a learned logstd, the GAIL CLI's
+    defaults of g_step 3 and d_step 1, RSI resets) at ``n_envs`` envs and
+    ``horizon`` steps, with the bundled expert."""
+    from deepmimic_mujoco_torch.algos.dataset import MujocoDset
+    from deepmimic_mujoco_torch.algos.gail import GAIL, GAILConfig
+    from deepmimic_mujoco_torch.algos.trpo import TRPOConfig
+    from deepmimic_mujoco_torch.envs.dp_env_v3 import DPEnvV3
+    from deepmimic_mujoco_torch.models.policy import MlpPolicy
+    from deepmimic_mujoco_torch.physics.humanoid import build_humanoid
+
+    dset = MujocoDset(EXPERT)
+    env = DPEnvV3(model=build_humanoid(device=device), **RECIPE_ENV)
+    return GAIL(env, MlpPolicy(ob_dim=68, ac_dim=28), dset.obs, dset.acs,
+                GAILConfig(trpo=TRPOConfig(horizon=horizon, num_envs=n_envs,
+                                           reset_mode="rsi"),
+                           d_step=d_step))
+
+
+def _gail_eval(torch, ops) -> dict:
+    """[gail] gail_r4's policy read by ``load_gail_state``: 64 RSI
+    episodes x 300 steps from ``GAIL_FRAMES``, deterministic, through the
+    runner; the launch counts set to 0 just before and read just after."""
+    from deepmimic_mujoco_torch.algos import runner
+    from deepmimic_mujoco_torch.algos.trpo import Draws
+    from deepmimic_mujoco_torch.io_utils import checkpoint
+
+    learner = _gail_learner(64, GAIL_TRAIN_HORIZON)
+    state = checkpoint.load_gail_state(CKPT_GAIL, learner, Draws(
+        torch.Generator(device="cuda").manual_seed(SEED)))
+    env = learner.env
+    start = env.reset_at([int(f) for f in GAIL_FRAMES.split(",")])
+    _zero_counts(ops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = runner.rollout(env, learner.policy, state.trpo.params, start,
+                         IMIT_HORIZON)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = _counts(ops)
+    lens = out.ep_len.double()
+    rec = {"ep_len_mean": float(lens.mean()),
+           "reward_per_step": float(out.ep_ret.double().mean())
+           / float(lens.mean()),
+           "env_steps_per_s": 64 * IMIT_HORIZON / dt, "seconds": dt,
+           "apgd_launches_per_control_step": n["apgd_solve"] / IMIT_HORIZON,
+           "launches": n}
+    finite = all(bool(torch.isfinite(x).all())
+                 for x in (out.state.qpos, out.state.qvel, out.state.obs))
+    print(f"[gail] evaluate gail_r4 (tanh 100x2, learned logstd), 64 RSI "
+          f"episodes x {IMIT_HORIZON} steps from fixed frames, "
+          f"deterministic: EpLen mean {rec['ep_len_mean']:.2f}, reward per "
+          f"step {rec['reward_per_step']:.4f} (the port on the CPU: EpLen "
+          f"{CPU_GAIL[0]}, {CPU_GAIL[1]}), {dt:.2f} s, "
+          f"{rec['env_steps_per_s']:.1f} env-steps/s; APGD launches per "
+          f"control step {rec['apgd_launches_per_control_step']:.2f} ({n}); "
+          f"finite {finite}")
+    if not (finite
+            and abs(rec["reward_per_step"] - CPU_GAIL[1]) <= 0.03
+            and abs(rec["ep_len_mean"] - CPU_GAIL[0]) <= 0.05 * CPU_GAIL[0]):
+        raise AssertionError(f"[gail] evaluation off: {rec}")
+    if n != {"apgd_solve": 8 * IMIT_HORIZON, "apgd_solve_lanes": 0,
+             "apgd_solve_wide": 0}:
+        raise AssertionError(f"[gail] evaluation: APGD launches {n}")
+    return rec
+
+
+def _gail_train(torch, ops) -> dict:
+    """[gail] ``GAIL.iteration`` resumed from gail_r4's whole state (64
+    envs, its discriminator and d-Adam, the expert cursor), horizon 32 of
+    the run's 1024, g_step 3, d_step 1: one warm-up and one timed
+    iteration, the launch counts set to 0 just before the timed one.
+    Phase times are wall time between synchronizations."""
+    from deepmimic_mujoco_torch.algos.trpo import Draws
+    from deepmimic_mujoco_torch.io_utils import checkpoint
+
+    learner = _gail_learner(64, GAIL_TRAIN_HORIZON)
+    state = checkpoint.load_gail_state(CKPT_GAIL, learner, Draws(
+        torch.Generator(device="cuda").manual_seed(SEED)))
+    t = learner.trpo
+    phase = {"rollout": 0.0, "policy update": 0.0, "vf epochs": 0.0,
+             "d-step": 0.0}
+    t._rollout = _timed(t._rollout, phase, "rollout")
+    t._policy_update = _timed(t._policy_update, phase, "policy update")
+    t._vf_update = _timed(t._vf_update, phase, "vf epochs")
+    learner._d_update = _timed(learner._d_update, phase, "d-step")
+    lens, trues = [], []
+
+    def iterate(state):
+        state, stats = learner.iteration(state)
+        ended = stats.trpo.ep_lens > 0
+        lens.extend(stats.trpo.ep_lens[ended].tolist())
+        trues.extend(stats.true_ep_rets[ended].tolist())
+        return state, stats
+
+    state, _ = iterate(state)  # warm-up
+    for k in phase:
+        phase[k] = 0.0
+    _zero_counts(ops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, stats = iterate(state)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = _counts(ops)
+    steps = 3 * GAIL_TRAIN_HORIZON
+    rec = {k: float(v) for k, v in (
+        ("DLoss", stats.d_loss), ("GenAcc", stats.gen_acc),
+        ("ExpertAcc", stats.exp_acc), ("meankl", stats.trpo.meankl),
+        ("surrgain", stats.trpo.surrgain))}
+    rec["EpTrueRewMean"] = sum(trues) / len(trues) if trues else float("nan")
+    rec["EpLenMean"] = sum(lens) / len(lens) if lens else float("nan")
+    rec.update(episodes=len(lens), env_steps_per_s=64 * steps / dt,
+               iteration_s=dt, phase_s=dict(phase),
+               apgd_launches_per_control_step=n["apgd_solve"] / steps,
+               launches=n, expert_ptr=int(state.expert_ptr))
+    params = state.trpo.params
+    finite = all(bool(torch.isfinite(x).all()) for x in (
+        [params["logstd"]] + [layer["w"] for layer in params["pol"]
+                              + params["vf"] + state.d_params["net"]])) \
+        and all(v == v and abs(v) != float("inf") for k, v in rec.items()
+                if k in ("DLoss", "GenAcc", "ExpertAcc", "meankl",
+                         "surrgain", "EpTrueRewMean"))
+    print(f"[gail] GAIL.iteration resumed from gail_r4: 64 envs x "
+          f"{GAIL_TRAIN_HORIZON} steps (horizon cut from 1024) x g_step 3, "
+          f"d_step 1, 1 timed after 1 warm-up: "
+          f"{rec['env_steps_per_s']:.1f} env-steps/s, {dt:.3f} s ("
+          + ", ".join(f"{k} {v:.3f} s" for k, v in phase.items())
+          + f"); DLoss {rec['DLoss']:.4f}, GenAcc {rec['GenAcc']:.4f}, "
+          f"ExpertAcc {rec['ExpertAcc']:.4f}, EpTrueRewMean "
+          f"{rec['EpTrueRewMean']:.3f} over {len(lens)} episodes, EpLenMean "
+          f"{rec['EpLenMean']:.1f}, meankl {rec['meankl']:.5f}; APGD "
+          f"launches per control step "
+          f"{rec['apgd_launches_per_control_step']:.2f} ({n}); finite "
+          f"{finite}")
+    if not (finite and lens and rec["meankl"] <= 1.5 * MAX_KL
+            and 0 <= rec["GenAcc"] <= 1 and 0 <= rec["ExpertAcc"] <= 1):
+        raise AssertionError(f"[gail] resumed training: {rec}")
+    if n != {"apgd_solve": 8 * steps, "apgd_solve_lanes": 0,
+             "apgd_solve_wide": 0}:
+        raise AssertionError(f"[gail] resumed training: APGD launches {n}")
+    return rec
+
+
+def _tree_to(tree, dev):
+    """A params dict (lists of layers, an obs-RMS or Adam triple) on
+    ``dev``."""
+    if hasattr(tree, "to"):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return type(tree)(*(_tree_to(v, dev) for v in tree))
+
+
+def _rel(a, b) -> float:
+    return float((a.cpu() - b.cpu()).abs().max()) / max(
+        1.0, float(b.cpu().abs().max()))
+
+
+def _gail_card_vs_cpu(torch) -> dict:
+    """[gail] one exact d-step (2 minibatches) and one TRPO segment update
+    from the same 8-env x 16-step segment (a discriminator-rewarded
+    rollout of the recipe on the card), params and permutations, on the
+    card and on the CPU: the discriminator's loss and accuracies, its
+    logits on the segment, the policy's means and the values on it within
+    1e-4 of max(1, max|x|); the parameters within 1e-2 (Adam moves a
+    parameter by about its step size whatever the sign of a rounding-level
+    gradient)."""
+    from deepmimic_mujoco_torch.algos.gail import disc_leaves
+    from deepmimic_mujoco_torch.algos.trpo import (Draws, flatten,
+                                                   policy_leaves, vf_leaves)
+
+    B, T = 8, 16
+    gen = torch.Generator().manual_seed(SEED)
+    d_perm = torch.randperm(B * T, generator=gen)
+    vf_perms = torch.stack([torch.randperm(B * T, generator=gen)
+                            for _ in range(3)])
+
+    class Fixed(Draws):
+        def d_permutation(self, n, device):
+            return d_perm.to(device)
+
+        def vf_permutations(self, n, epochs, device):
+            return vf_perms.to(device)
+
+    ref = _gail_learner(B, T, d_step=2)
+    st = ref.init(torch.Generator(device="cuda").manual_seed(SEED))
+    t = st.trpo
+    seg = ref.trpo._rollout(
+        t.params, t.env_state, t.new, t.draws, t.cur_ep_ret, t.cur_ep_len,
+        reward_fn=lambda ob, ac: ref.disc.reward(st.d_params, ob, ac))[0]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        learner = _gail_learner(B, T, dev, d_step=2)
+        s = {k: v.to(dev) for k, v in seg.items()}
+        ob, ac = s["ob"].reshape(-1, 68), s["ac"].reshape(-1, 28)
+        d_params, _, _, d_rec = learner._d_update(
+            _tree_to(st.d_params, dev), _tree_to(st.d_adam, dev),
+            st.expert_ptr.to(dev), ob, ac, Fixed(None))
+        params = learner.trpo._segment_update(
+            _tree_to(t.params, dev), _tree_to(t.vf_adam, dev), s,
+            Fixed(None))[0]
+        out[dev] = {
+            "d_loss_accs": d_rec, "logits": learner.disc.logits(d_params, ob,
+                                                                ac),
+            "means": learner.policy.mean_logstd(params, ob)[0],
+            "values": learner.policy.value(params, ob),
+            "d_params": flatten(disc_leaves(d_params)),
+            "pol_params": flatten(policy_leaves(params)),
+            "vf_params": flatten(vf_leaves(params))}
+    d = {k: _rel(out["cuda"][k], out["cpu"][k]) for k in out["cpu"]}
+    bounds = {k: 1e-2 if k.endswith("params") else 1e-4 for k in d}
+    print(f"[gail] one d-step and one segment update from a {B}-env x "
+          f"{T}-step segment, card vs CPU: max diff / max(1, max|x|): "
+          + ", ".join(f"{k} {v:.3e} (bound {bounds[k]:.0e})"
+                      for k, v in d.items()))
+    if not all(d[k] <= bounds[k] for k in d):
+        raise AssertionError("[gail] the card's d-step or segment update "
+                             "disagrees with the CPU's")
+    return d
+
+
+def _gail_cli(torch, tmp: str) -> dict:
+    """[gail] ``python -m deepmimic_mujoco_torch.cli.train_gail`` with the
+    r4 run's flags at 64 envs x 32 steps, BC pretraining of 200 steps, 2
+    iterations, in ``tmp``: the BC loss goes down, the tabular keys are
+    logged, and ``gail_state.npz`` reads back through
+    ``load_gail_state``."""
+    from deepmimic_mujoco_torch.algos.trpo import Draws
+    from deepmimic_mujoco_torch.io_utils import checkpoint
+
+    cmd = [sys.executable, "-m", "deepmimic_mujoco_torch.cli.train_gail",
+           *GAIL_FLAGS, "--num-envs", "64", "--timesteps-per-batch",
+           str(GAIL_TRAIN_HORIZON), "--num-iters", "2", "--pretrained",
+           "--bc-max-iters", "200", "--seed", str(SEED),
+           "--log-dir", os.path.join(tmp, "logs"),
+           "--checkpoint-dir", os.path.join(tmp, "ckpt")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=400, check=False)
+    dt = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:], proc.stderr[-3000:], file=sys.stderr)
+        raise AssertionError(f"the GAIL CLI exited {proc.returncode}")
+    bc = [float(m) for m in re.findall(r"BC iter \d+: loss (\S+)",
+                                       proc.stdout)]
+    run = os.path.join("DPEnvV3", "gail-walk-0")
+    with open(os.path.join(tmp, "logs", run, "progress.csv")) as fh:
+        rows = fh.read().strip().splitlines()
+    last = dict(zip(rows[0].split(","), rows[-1].split(",")))
+    learner = _gail_learner(64, GAIL_TRAIN_HORIZON)
+    state = checkpoint.load_gail_state(
+        os.path.join(tmp, "ckpt", run, "gail_state.npz"), learner,
+        Draws(None))
+    rec = {"bc_loss_first": bc[0], "bc_loss_last": bc[-1], "seconds": dt,
+           "progress": last, "expert_ptr": int(state.expert_ptr)}
+    print(f"[gail] CLI train_gail, the r4 flags at 64 envs x "
+          f"{GAIL_TRAIN_HORIZON} steps, --pretrained --bc-max-iters 200, "
+          f"--num-iters 2: exit 0 in {dt:.1f} s (process start and imports "
+          f"included); BC loss {bc[0]:.4f} -> {bc[-1]:.4f}; last row "
+          + ", ".join(f"{k} {last[k]}" for k in sorted(last))
+          + f"; gail_state.npz reads back through load_gail_state, expert "
+          f"cursor {rec['expert_ptr']}")
+    keys = {"EpLenMean", "EpRewMean", "EpTrueRewMean", "DLoss", "GenAcc",
+            "ExpertAcc", "TimestepsSoFar", "TimeElapsed"}
+    if not (len(bc) == 2 and bc[-1] < bc[0] and set(last) == keys
+            and len(rows) == 3
+            and rec["expert_ptr"] == 2 * 64 * GAIL_TRAIN_HORIZON):
+        raise AssertionError(f"[gail] the CLI's run is off: {rec}")
+    return rec
+
+
+def _ppo_cli(torch, ops, train_trpo, tmp: str) -> dict:
+    """[ppo] ``cli.train_trpo --algo ppo --task train`` on walk (torque),
+    in-process: 4096 envs x 64 steps (bench.py's width), the PPO defaults
+    (4 epochs x 8 minibatches of 32,768 rows), 2 iterations, into ``tmp``.
+    The rollout and the update are timed (wall time between
+    synchronizations), the launch counts set to 0 just before."""
+    from deepmimic_mujoco_torch.algos.ppo import PPO
+
+    phase = {"rollout": 0.0, "update": 0.0}
+    rollout, update = PPO._rollout, PPO._update
+    PPO._rollout = _timed(rollout, phase, "rollout")
+    PPO._update = _timed(update, phase, "update")
+    _zero_counts(ops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        state = train_trpo.main([
+            "--task", "train", "--algo", "ppo", "--num-envs", str(B_MAIN),
+            "--timesteps-per-batch", str(TRAIN_HORIZON), "--num-iters", "2",
+            "--device", "cuda", "--seed", str(SEED),
+            "--log-dir", os.path.join(tmp, "logs"),
+            "--checkpoint-dir", os.path.join(tmp, "ckpt")])
+        torch.cuda.synchronize()
+    finally:
+        PPO._rollout, PPO._update = rollout, update
+    dt = time.perf_counter() - t0
+    n = _counts(ops)
+    with open(os.path.join(tmp, "logs", "DPEnvV3", "ppo-walk-0",
+                           "progress.csv")) as fh:
+        rows = fh.read().strip().splitlines()
+    last = {k: float(v) for k, v in zip(rows[0].split(","),
+                                        rows[-1].split(","))}
+    steps = 2 * TRAIN_HORIZON
+    rec = {"env_steps_per_s": B_MAIN * steps / dt, "seconds": dt,
+           "phase_s_per_iteration": {k: v / 2 for k, v in phase.items()},
+           "apgd_launches_per_env_step": n["apgd_solve"] / steps,
+           "launches": n, **{k: last[k] for k in (
+               "meankl", "optimgain", "surrgain", "entloss", "entropy",
+               "ev_tdlam_before", "EpLenMean")}}
+    params = state.params
+    finite = all(bool(torch.isfinite(x).all()) for x in (
+        [params["logstd"]] + [layer["w"] for layer in params["pol"]
+                              + params["vf"]])) and all(
+        v == v and abs(v) != float("inf") for k, v in rec.items()
+        if k in ("meankl", "optimgain", "surrgain", "entloss", "entropy"))
+    print(f"[ppo] CLI --algo ppo --task train, walk (torque), {B_MAIN} envs "
+          f"x {TRAIN_HORIZON} steps, 4 epochs x 8 minibatches of "
+          f"{B_MAIN * TRAIN_HORIZON // 8} rows, 2 iterations, in-process: "
+          f"{rec['env_steps_per_s']:.1f} env-steps/s over {dt:.2f} s "
+          f"(checkpoints and logs included); per iteration rollout "
+          f"{phase['rollout'] / 2:.3f} s, update {phase['update'] / 2:.3f} "
+          f"s; last row meankl {last['meankl']:.5f}, surrgain "
+          f"{last['surrgain']:.5f}, entropy {last['entropy']:.3f}, "
+          f"ev_tdlam_before {last['ev_tdlam_before']:.4f}, EpLenMean "
+          f"{last['EpLenMean']}; APGD launches per env step "
+          f"{rec['apgd_launches_per_env_step']:.2f} ({n}); finite {finite}")
+    if not (finite and len(rows) == 3):
+        raise AssertionError(f"[ppo] CLI run: {rec}")
+    if n != {"apgd_solve": 4 * steps, "apgd_solve_lanes": 0,
+             "apgd_solve_wide": 0}:
+        raise AssertionError(f"[ppo] APGD launches {n}")
+    return rec
+
+
+def _ppo_card_vs_cpu(torch) -> dict:
+    """[ppo] one ``PPO.iteration`` (walk, 16 envs x 16 steps, 4 epochs x 8
+    minibatches) from the same state and the same draws (the CPU run's,
+    recorded and replayed on the card): the policy's means and the values
+    on the CPU's final obs and the iteration's stats within 1e-4 of
+    max(1, max|x|), the parameters within 1e-2."""
+    import dataclasses
+
+    from deepmimic_mujoco_torch.algos.ppo import PPO, PPOConfig, train_leaves
+    from deepmimic_mujoco_torch.algos.trpo import Draws, flatten
+    from deepmimic_mujoco_torch.envs.dp_env_v3 import DPEnvV3
+    from deepmimic_mujoco_torch.models.policy import MlpPolicy
+    from deepmimic_mujoco_torch.physics.humanoid import build_humanoid
+
+    log = []
+
+    class Record(Draws):
+        def action_noise(self, mean):
+            log.append(super().action_noise(mean))
+            return log[-1]
+
+        def fresh_states(self, reset_fn, done, state=None):
+            log.append(super().fresh_states(reset_fn, done, state))
+            return log[-1]
+
+        def vf_permutations(self, n, epochs, device):
+            log.append(super().vf_permutations(n, epochs, device))
+            return log[-1]
+
+    class Replay(Draws):
+        def action_noise(self, mean):
+            return log.pop(0).to(mean.device)
+
+        def fresh_states(self, reset_fn, done, state=None):
+            return log.pop(0).map(lambda x: x.to(done.device))
+
+        def vf_permutations(self, n, epochs, device):
+            return log.pop(0).to(device)
+
+    B, T = 16, 16
+    cpu, card = (PPO(DPEnvV3(model=build_humanoid(device=dev)),
+                     MlpPolicy(ob_dim=56, ac_dim=28),
+                     PPOConfig(horizon=T, num_envs=B))
+                 for dev in ("cpu", "cuda"))
+    st = cpu.init(torch.Generator().manual_seed(SEED))
+    st_card = dataclasses.replace(
+        st, params=_tree_to(st.params, "cuda"),
+        opt=_tree_to(st.opt, "cuda"),
+        env_state=st.env_state.map(lambda x: x.to("cuda")),
+        new=st.new.cuda(), draws=Replay(None), cur_ep_ret=st.cur_ep_ret.cuda(),
+        cur_ep_len=st.cur_ep_len.cuda(), lr_scale=st.lr_scale.cuda())
+    out, obs = {}, None
+    for dev, learner, state in (
+            ("cpu", cpu, dataclasses.replace(
+                st, draws=Record(torch.Generator().manual_seed(SEED)))),
+            ("cuda", card, st_card)):
+        st1, stats = learner.iteration(state)
+        obs = st1.env_state.obs if obs is None else obs.to(dev)
+        out[dev] = {
+            "means": learner.policy.mean_logstd(st1.params, obs)[0],
+            "values": learner.policy.value(st1.params, obs),
+            "stats": torch.stack([stats.meankl, stats.surrgain,
+                                  stats.entropy, stats.ev_tdlam_before]),
+            "params": flatten(train_leaves(st1.params))}
+    d = {k: _rel(out["cuda"][k], out["cpu"][k]) for k in out["cpu"]}
+    bounds = {k: 1e-2 if k == "params" else 1e-4 for k in d}
+    print(f"[ppo] one PPO.iteration, {B} envs x {T} steps, the same draws, "
+          f"card vs CPU: max diff / max(1, max|x|): " + ", ".join(
+              f"{k} {v:.3e} (bound {bounds[k]:.0e})" for k, v in d.items())
+          + f"; draws left unreplayed {len(log)}")
+    if log or not all(d[k] <= bounds[k] for k in d):
+        raise AssertionError("[ppo] the card's iteration disagrees with the "
+                             "CPU's")
+    return d
+
+
 def _profile(torch, runner, env, policy, params, state, steps: int,
              tag: str) -> dict:
     """A ``torch.profiler`` window of ``steps`` env steps (after 2 warm-up
@@ -1294,6 +1751,22 @@ def main() -> int:
             lanes_rec["evaluate"], lanes_rec["train_resumed"],
             lanes_rec["train_fresh"]))
 
+    # GAIL from the bundled r4 run (evaluation, resumed training, one d-step
+    # and segment update card vs CPU, the CLI with BC), then PPO (the CLI at
+    # bench.py's width, one iteration card vs CPU); before any profiler
+    # session
+    gail = {"evaluate": _gail_eval(torch, ops),
+            "train_resumed": _gail_train(torch, ops),
+            "card_vs_cpu": _gail_card_vs_cpu(torch)}
+    with tempfile.TemporaryDirectory() as tmp:
+        gail["cli"] = _gail_cli(torch, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        ppo = {"train_cli": _ppo_cli(torch, ops, train_trpo, tmp)}
+    ppo["card_vs_cpu"] = _ppo_card_vs_cpu(torch)
+    launches["apgd_solve"] += sum(
+        r["launches"]["apgd_solve"] for r in (
+            gail["evaluate"], gail["train_resumed"], ppo["train_cli"]))
+
     # one env step's four solves through the dispatch: the wrappers' counts
     # give the launches; profiler windows show what ran on the device (a
     # window may miss a kernel's record, so the most any window saw is read)
@@ -1396,6 +1869,8 @@ def main() -> int:
     kernels[0]["imitation"] = imit
     kernels[0]["multi"] = multi
     kernels[0]["trpo_lanes"] = lanes_rec
+    kernels[0]["gail"] = gail
+    kernels[0]["ppo"] = ppo
     print(f"[done] {time.perf_counter() - t_start:.1f} s after the imports")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Host-side training loop (port of ``deepmimic_mujoco_tpu/algos/
-train_loop.py:train``): runs TRPO iterations with the tabular log, the
-per-episode monitor and checkpoints at iteration 0, every
+train_loop.py:train``): runs the iterations of a TRPO or PPO learner with
+the tabular log, the per-episode monitor and checkpoints (``trpo_state.npz``
+for either learner, as JAX names them) at iteration 0, every
 ``save_per_iter`` iterations and at the end."""
 
 from __future__ import annotations
@@ -14,20 +15,22 @@ from typing import Optional
 import numpy as np
 import torch
 
-from deepmimic_mujoco_torch.algos.trpo import TRPO, Draws, TRPOState
+from deepmimic_mujoco_torch.algos.ppo import PPO
+from deepmimic_mujoco_torch.algos.trpo import TRPO, Draws
 from deepmimic_mujoco_torch.io_utils import checkpoint
 from deepmimic_mujoco_torch.utils import logger
 from deepmimic_mujoco_torch.utils.monitor import Monitor
 
 
-def train(learner: TRPO, seed: int = 0, max_timesteps: int = 0,
+def train(learner: TRPO | PPO, seed: int = 0, max_timesteps: int = 0,
           max_iters: int = 0, ckpt_dir: Optional[str] = None,
           log_dir: Optional[str] = None, save_per_iter: int = 100,
           resume_from: Optional[str] = None, verbose: bool = True,
-          override_logstd: Optional[float] = None) -> TRPOState:
+          override_logstd: Optional[float] = None):
     """Train until ``max_timesteps`` env steps or ``max_iters`` iterations
-    (exactly one of them).  ``resume_from``: a TRPO checkpoint whose whole
-    state (params, Adam, envs, episode accounting) the run continues from;
+    (exactly one of them); returns the learner's final state.
+    ``resume_from``: a checkpoint of the learner's kind whose whole state
+    (params, Adam, envs, episode accounting) the run continues from;
     ``override_logstd`` then sets the exploration logstd, which the
     checkpoint's value would otherwise fix."""
     if (max_timesteps > 0) == (max_iters > 0):
@@ -39,8 +42,9 @@ def train(learner: TRPO, seed: int = 0, max_timesteps: int = 0,
 
     generator = torch.Generator(device=learner.device).manual_seed(seed)
     if resume_from is not None:
-        state = checkpoint.load_trpo_state(resume_from, learner,
-                                           Draws(generator))
+        load = (checkpoint.load_ppo_state if isinstance(learner, PPO)
+                else checkpoint.load_trpo_state)
+        state = load(resume_from, learner, Draws(generator))
     else:
         state = learner.init(generator)
     if override_logstd is not None:

@@ -20,7 +20,9 @@ is dropped.  Rows are flattened time-major, as ``reshape(-1, ·)`` of the
 ``ravel_pytree`` order, so row picks and Adam's moments line up with JAX's.
 
 Every random draw goes through one :class:`Draws` object in the state: the
-action noise, the fresh reset states and the vf permutations.  By default
+action noise, the fresh reset states and the vf permutations (and, for the
+learners built on this rollout, PPO's epoch permutations and GAIL's d-step
+draws, ``algos/ppo.py`` and ``algos/gail.py``).  By default
 it draws from a ``torch.Generator``; the parity tests hand it JAX's own
 draws instead.  Where JAX's line search and CG loops test a condition on
 the device, the port reads it on the host (one sync per CG iteration and
@@ -64,7 +66,8 @@ class TRPOConfig(NamedTuple):
 
 
 class Draws:
-    """Every random draw of TRPO, from one generator on the env's device."""
+    """Every random draw of TRPO, PPO and GAIL, from one generator on the
+    env's device."""
 
     def __init__(self, generator: torch.Generator):
         self.generator = generator
@@ -91,6 +94,28 @@ class Draws:
         return torch.stack([torch.randperm(n, generator=self.generator,
                                            device=device)
                             for _ in range(epochs)])
+
+    def epoch_permutations(self, n: int, epochs: int,
+                           device: torch.device) -> torch.Tensor:
+        """(epochs, n): PPO's minibatch order, one permutation of the
+        rows per epoch (the draw of :meth:`vf_permutations`)."""
+        return self.vf_permutations(n, epochs, device)
+
+    def d_permutation(self, n: int, device: torch.device) -> torch.Tensor:
+        """(n,): the order in which GAIL's exact d-step sweeps the last
+        segment's rows."""
+        return torch.randperm(n, generator=self.generator, device=device)
+
+    def d_subsamples(self, n: int, n_exp: int, n_mb: int, mb: int,
+                     device: torch.device):
+        """GAIL's legacy d-step: (n_mb, mb) generator rows, each
+        minibatch drawn without replacement from ``n``, and (n_mb, mb)
+        expert rows drawn with replacement from ``n_exp``."""
+        g_idx = torch.argsort(torch.rand((n_mb, n), generator=self.generator,
+                                         device=device), dim=1)[:, :mb]
+        e_idx = torch.randint(0, n_exp, (n_mb, mb), generator=self.generator,
+                              device=device)
+        return g_idx, e_idx
 
 
 @dataclasses.dataclass(frozen=True)
@@ -214,11 +239,17 @@ class TRPO:
     # ------------------------------------------------------------------
     @torch.no_grad()
     def _rollout(self, params: dict, env_state: EnvState, new: torch.Tensor,
-                 draws: Draws, ep_ret: torch.Tensor, ep_len: torch.Tensor):
+                 draws: Draws, ep_ret: torch.Tensor, ep_len: torch.Tensor,
+                 reward_fn=None):
         """Fixed-horizon segment across episode boundaries; the segment's
-        tensors are (T, B, ...)."""
+        tensors are (T, B, ...).  ``reward_fn(ob, ac)``, where given (GAIL),
+        replaces the env's reward as the stored reward and in the episode
+        returns; the env's own returns are then kept in ``ep_true``,
+        summed from zero at the segment's start, as JAX's GAIL rollout
+        does."""
         keys = ("ob", "ac", "vpred", "rew", "new", "ep_rets", "ep_lens")
-        traj = {k: [] for k in keys}
+        traj = {k: [] for k in keys + ("ep_true",)}
+        true_ret = torch.zeros_like(ep_ret)
         for _ in range(self.cfg.horizon):
             ob = env_state.obs
             mean, logstd = self.policy.mean_logstd(params, ob)
@@ -226,7 +257,13 @@ class TRPO:
             vpred = self.policy.value(params, ob)
             nxt = self.env.step(env_state, ac)
             done = nxt.done
-            ep_ret = ep_ret + nxt.reward
+            rew = nxt.reward
+            if reward_fn is not None:
+                rew = reward_fn(ob, ac)
+                true_ret = true_ret + nxt.reward
+                traj["ep_true"].append(torch.where(done, true_ret, 0.0))
+                true_ret = torch.where(done, 0.0, true_ret)
+            ep_ret = ep_ret + rew
             ep_len = ep_len + 1
             traj["ep_rets"].append(torch.where(done, ep_ret, 0.0))
             traj["ep_lens"].append(torch.where(done, ep_len, 0))
@@ -237,10 +274,10 @@ class TRPO:
             else:
                 fresh = draws.fresh_states(self._reset_fn, done)
             env_state = fresh.where(done, nxt)
-            for k, x in zip(keys[:5], (ob, ac, vpred, nxt.reward, new)):
+            for k, x in zip(keys[:5], (ob, ac, vpred, rew, new)):
                 traj[k].append(x)
             new = done
-        seg = {k: torch.stack(v) for k, v in traj.items()}
+        seg = {k: torch.stack(v) for k, v in traj.items() if v}
         seg["new"] = seg["new"].float()
         seg["nextvpred"] = self.policy.value(params, env_state.obs) * (
             1.0 - new.float())

@@ -9,8 +9,10 @@ an imitation reward, at least 2 substeps, 300-step episodes, the full obs
 and fall-contact termination unless given).  ``--joint-limits mocap``
 widens the hinge ranges to the bundled clips' poses; ``--warm-iterations``
 sets the model's warm-started solve budget; ``--clip-weights`` weights the
-clips' RSI draws.  Not ported: ``--algo ppo`` and ``--dynamics mujoco``
-raise ``NotImplementedError`` naming ROADMAP.md.
+clips' RSI draws.  ``--algo ppo`` trains the vectorized clipped-surrogate
+PPO (``algos/ppo.py``, the ``--ppo-*`` flags) and evaluates its
+checkpoints.  Not ported: ``--dynamics mujoco`` raises
+``NotImplementedError`` naming ROADMAP.md.
 
 Examples:
   python -m deepmimic_mujoco_torch.cli.train_trpo --task train \\
@@ -35,6 +37,9 @@ Examples:
       --control-mode pd_residual --n-substeps 2 --max-episode-steps 300 \\
       --reset-mode rsi --gamma 0.95 --lam 0.95 --hidden-sizes 1024,512 \\
       --activation relu --fixed-logstd -3.0 --clip-weights 1,1,2
+  # vectorized PPO on walk at bench.py's width
+  python -m deepmimic_mujoco_torch.cli.train_trpo --task train --algo ppo \\
+      --num-envs 4096 --timesteps-per-batch 64 --num-iters 100
 
 Without ``--device cpu`` they run on the CUDA card.
 """
@@ -49,6 +54,7 @@ import warnings
 
 import torch
 
+from deepmimic_mujoco_torch.algos.ppo import PPO, PPOConfig
 from deepmimic_mujoco_torch.algos.runner import evaluate
 from deepmimic_mujoco_torch.algos.train_loop import train
 from deepmimic_mujoco_torch.algos.trpo import TRPO, TRPOConfig
@@ -73,7 +79,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--task", default="train",
                    choices=["train", "evaluate", "sample"])
-    p.add_argument("--algo", default="trpo", choices=["trpo", "ppo"])
+    p.add_argument("--algo", default="trpo", choices=["trpo", "ppo"],
+                   help="trust-region TRPO or vectorized clipped PPO")
+    # PPO-only knobs (algos/ppo.py)
+    p.add_argument("--ppo-clip", type=float, default=0.2)
+    p.add_argument("--ppo-epochs", type=int, default=4)
+    p.add_argument("--ppo-minibatches", type=int, default=8)
+    p.add_argument("--ppo-lr", type=float, default=3e-4)
+    p.add_argument("--ppo-ent-coef", type=float, default=0.0)
+    p.add_argument("--ppo-lr-decay", type=float, default=1.0)
     # TRPO hyperparameters (the JAX CLI's defaults)
     p.add_argument("--g-step", type=int, default=3)
     p.add_argument("--policy-entcoeff", type=float, default=0)
@@ -186,13 +200,9 @@ def make_env(args, model):
 
 
 def main(argv=None):
-    """Runs the task; returns the final ``TRPOState`` (train) or the
-    ``EvalResult`` (evaluate, sample)."""
+    """Runs the task; returns the final ``TRPOState`` or ``PPOState``
+    (train) or the ``EvalResult`` (evaluate, sample)."""
     args = build_parser().parse_args(argv)
-    if args.algo != "trpo":
-        raise NotImplementedError(
-            f"--algo {args.algo} is not ported yet (ROADMAP.md, queue A, "
-            "item 'Other learners')")
     if args.dynamics != "torch":
         raise NotImplementedError(
             f"--dynamics {args.dynamics} (the host-MuJoCo A/B backend) is not "
@@ -215,20 +225,28 @@ def main(argv=None):
     name = task_name(args)
 
     if args.task == "train":
-        cfg = TRPOConfig(
-            horizon=args.timesteps_per_batch, num_envs=args.num_envs,
-            g_step=args.g_step, gamma=args.gamma, lam=args.lam,
-            max_kl=args.max_kl, cg_iters=args.cg_iters,
-            cg_damping=args.cg_damping, vf_iters=args.vf_iters,
-            vf_stepsize=args.vf_stepsize, entcoeff=args.policy_entcoeff,
-            reset_mode=args.reset_mode)
+        if args.algo == "ppo":
+            learner = PPO(env, policy, PPOConfig(
+                horizon=args.timesteps_per_batch, num_envs=args.num_envs,
+                gamma=args.gamma, lam=args.lam, clip_ratio=args.ppo_clip,
+                epochs=args.ppo_epochs, minibatches=args.ppo_minibatches,
+                lr=args.ppo_lr, ent_coef=args.ppo_ent_coef,
+                reset_mode=args.reset_mode, lr_decay=args.ppo_lr_decay))
+        else:
+            learner = TRPO(env, policy, TRPOConfig(
+                horizon=args.timesteps_per_batch, num_envs=args.num_envs,
+                g_step=args.g_step, gamma=args.gamma, lam=args.lam,
+                max_kl=args.max_kl, cg_iters=args.cg_iters,
+                cg_damping=args.cg_damping, vf_iters=args.vf_iters,
+                vf_stepsize=args.vf_stepsize, entcoeff=args.policy_entcoeff,
+                reset_mode=args.reset_mode))
         # the exact recipe next to the logs
         log_dir = os.path.join(args.log_dir, name)
         os.makedirs(log_dir, exist_ok=True)
         with open(os.path.join(log_dir, "args.json"), "w") as f:
             json.dump(vars(args), f, indent=1, sort_keys=True)
         return train(
-            TRPO(env, policy, cfg), seed=args.seed,
+            learner, seed=args.seed,
             max_timesteps=args.num_timesteps if not args.num_iters else 0,
             max_iters=args.num_iters,
             ckpt_dir=os.path.join(args.checkpoint_dir, name),
@@ -238,8 +256,9 @@ def main(argv=None):
 
     generator = torch.Generator(device=device).manual_seed(args.seed)
     if args.load_model_path:
-        params = checkpoint.load_trpo_params(args.load_model_path, policy,
-                                             device)
+        load = (checkpoint.load_ppo_params if args.algo == "ppo"
+                else checkpoint.load_trpo_params)
+        params = load(args.load_model_path, policy, device)
     else:
         params = policy.init(generator, device)
     result = evaluate(env, policy, params, generator,

@@ -21,18 +21,27 @@ flattens it (dataclass fields in order, dict keys sorted):
 
 (leaf_0..15 hold the policy for L = 3.)  A file of independent learners
 (the lane tool's ``imit15_state.npz``) has the same leaves with every leaf
-stacked on a new leading lane axis, under the same structure string."""
+stacked on a new leading lane axis, under the same structure string.
+
+A ``PPOState`` has the same leaves, with PPO's Adam over the flat
+``{logstd, pol, vf}`` vector in place of ``vf_adam``, and one more at the
+end: ``lr_scale`` () float32.  A ``GAILState`` is the ``TRPOState``'s
+leaves followed by the discriminator's: its net (b, w) × 3 layers, its
+obs-RMS mean, var, count, its Adam m, v, t and ``expert_ptr`` () int32."""
 
 from __future__ import annotations
 
 import os
+import re
 import types
 
 import numpy as np
 import torch
 
 from deepmimic_mujoco_torch.algos import adam
+from deepmimic_mujoco_torch.algos.gail import GAIL, GAILState, disc_leaves
 from deepmimic_mujoco_torch.algos.lanes import LaneState
+from deepmimic_mujoco_torch.algos.ppo import PPO, PPOState
 from deepmimic_mujoco_torch.algos.trpo import TRPO, Draws, TRPOState
 from deepmimic_mujoco_torch.envs.types import EnvState
 from deepmimic_mujoco_torch.models.policy import MlpPolicy
@@ -42,20 +51,47 @@ _ENV_FIELDS = ("qpos", "qvel", "obs", "reward", "done", "mocap_idx",
                "init_idx", "step_count")
 
 
+_RMS = "CustomNode(namedtuple[RunningMeanStd], [*, *, *])"
+_ADAM = "CustomNode(namedtuple[AdamState], [*, *, *])"
+
+
+def _mlp(n_layers: int) -> str:
+    return "[" + ", ".join(["{'b': *, 'w': *}"] * n_layers) + "]"
+
+
+def _state_node(name: str, n_layers: int, clip_id: str, n_tail: int) -> str:
+    """A JAX state node of the TRPOState layout: params, an Adam state,
+    the env state and ``n_tail`` trailing leaves."""
+    mlp = _mlp(n_layers)
+    env = ", ".join(["*"] * 9) + {"absent": "", "none": ", None",
+                                  "array": ", *"}[clip_id]
+    tail = ", ".join(["*"] * n_tail)
+    return (f"CustomNode({name}[()], [{{'logstd': *, 'ob_rms': {_RMS}, "
+            f"'pol': {mlp}, 'vf': {mlp}}}, {_ADAM}, "
+            f"CustomNode(EnvState[()], [{env}]), {tail}])")
+
+
 def trpo_state_treedef(n_layers: int = 3, clip_id: str = "none") -> str:
     """The structure string of a JAX ``TRPOState`` whose MLPs have
     ``n_layers`` layers.  ``EnvState`` gained a trailing ``clip_id`` field
     after the bundled single-clip checkpoints were written: ``clip_id`` is
     "absent" for their older string, "none" for a single-clip env's state
     (the field is None) and "array" for a multi-clip env's."""
-    mlp = "[" + ", ".join(["{'b': *, 'w': *}"] * n_layers) + "]"
-    env = ", ".join(["*"] * 9) + {"absent": "", "none": ", None",
-                                  "array": ", *"}[clip_id]
-    return ("PyTreeDef(CustomNode(TRPOState[()], [{'logstd': *, 'ob_rms': "
-            "CustomNode(namedtuple[RunningMeanStd], [*, *, *]), "
-            f"'pol': {mlp}, 'vf': {mlp}}}, "
-            "CustomNode(namedtuple[AdamState], [*, *, *]), "
-            f"CustomNode(EnvState[()], [{env}]), *, *, *, *]))")
+    return f"PyTreeDef({_state_node('TRPOState', n_layers, clip_id, 4)})"
+
+
+def ppo_state_treedef(n_layers: int = 3, clip_id: str = "none") -> str:
+    """The structure string of a JAX ``PPOState`` (``trpo_state_treedef``'s
+    arguments)."""
+    return f"PyTreeDef({_state_node('PPOState', n_layers, clip_id, 5)})"
+
+
+def gail_state_treedef(n_layers: int = 3, clip_id: str = "none") -> str:
+    """The structure string of a JAX ``GAILState`` (``trpo_state_treedef``'s
+    arguments; the discriminator always has 3 layers)."""
+    trpo = _state_node("TRPOState", n_layers, clip_id, 4)
+    return (f"PyTreeDef(CustomNode(GAILState[()], [{trpo}, {{'net': "
+            f"{_mlp(3)}, 'obs_rms': {_RMS}}}, {_ADAM}, *]))")
 
 
 _CLIP_ID_FORMS = ("absent", "none", "array")
@@ -112,18 +148,20 @@ def _env_state(es, device: torch.device | str) -> EnvState:
         clip_id=None if clip_id is None else t(clip_id, i64))
 
 
-def _read(path: str, policy: MlpPolicy, lanes: bool = False
-          ) -> tuple[list, str]:
-    """All leaves of a TRPOState checkpoint of ``policy``'s depth, checked
-    against its structure string and ``policy``'s shapes; ``lanes``: a file
-    of independent learners, every leaf with a leading lane axis."""
+def _read(path: str, policy: MlpPolicy, lanes: bool = False,
+          treedef_of=trpo_state_treedef) -> tuple[list, str]:
+    """All leaves of a checkpoint of ``policy``'s depth, checked against
+    its structure string (``treedef_of``'s, TRPOState's by default) and
+    ``policy``'s shapes; ``lanes``: a file of independent learners, every
+    leaf with a leading lane axis."""
     n_layers = len(policy.sizes)
     with np.load(path, allow_pickle=False) as z:
         treedef = bytes(z["__treedef__"]).decode()
-        accepted = [trpo_state_treedef(n_layers, c) for c in _CLIP_ID_FORMS]
+        accepted = [treedef_of(n_layers, c) for c in _CLIP_ID_FORMS]
         if treedef not in accepted:
+            name = re.search(r"CustomNode\((\w+)\[", accepted[0]).group(1)
             raise ValueError(
-                f"{path!r} is not a TRPOState checkpoint of a "
+                f"{path!r} is not a {name} checkpoint of a "
                 f"{n_layers}-layer MlpPolicy:\n  saved:    {treedef}\n"
                 f"  expected: {accepted[1]}\n  or:       {accepted[2]}")
         leaves = [z[f"leaf_{i}"] for i in range(len(z.files) - 1)]
@@ -180,6 +218,29 @@ def load_trpo_params(path: str, policy: MlpPolicy,
     return from_numpy_params(_params(leaves, len(policy.sizes)), device)
 
 
+def _check_envs(path: str, state, num_envs: int) -> None:
+    n_envs = state.env_state.qpos.shape[0]
+    if n_envs != num_envs:
+        raise ValueError(f"{path!r} holds {n_envs} envs; the learner runs "
+                         f"{num_envs}")
+
+
+def _check_adam(path: str, what: str, adam_leaves, params_leaves) -> None:
+    n = sum(np.size(x) for x in params_leaves)
+    if np.shape(adam_leaves[0]) != (n,):
+        raise ValueError(f"{path!r}: {what} Adam moments of shape "
+                         f"{np.shape(adam_leaves[0])}; the learner has {n} "
+                         "parameters")
+
+
+def load_ppo_params(path: str, policy: MlpPolicy,
+                    device: torch.device | str) -> dict:
+    """The policy parameters of a PPO checkpoint, as
+    :func:`load_trpo_params` reads a TRPO checkpoint's."""
+    leaves, _ = _read(path, policy, treedef_of=ppo_state_treedef)
+    return from_numpy_params(_params(leaves, len(policy.sizes)), device)
+
+
 def load_trpo_state(path: str, learner: TRPO, draws: Draws) -> TRPOState:
     """The whole training state of a TRPO checkpoint (written by the JAX
     package or by :func:`save`) for ``learner``: params, ``vf_adam``, env
@@ -187,11 +248,63 @@ def load_trpo_state(path: str, learner: TRPO, draws: Draws) -> TRPOState:
     are not read: ``draws`` gives the port's random draws."""
     leaves, _ = _read(path, learner.policy)
     state = _layout(leaves, len(learner.policy.sizes))
-    n_envs = state.env_state.qpos.shape[0]
-    if n_envs != learner.cfg.num_envs:
-        raise ValueError(f"{path!r} holds {n_envs} envs; the learner runs "
-                         f"{learner.cfg.num_envs}")
+    _check_envs(path, state, learner.cfg.num_envs)
     return from_numpy_state(state, draws, learner.device)
+
+
+def load_ppo_state(path: str, learner: PPO, draws: Draws) -> PPOState:
+    """The whole training state of a PPO checkpoint (written by the JAX
+    package or by :func:`save`) for ``learner``: params, PPO's Adam, env
+    state, ``new``, the episode accounting and ``lr_scale``; ``draws``
+    gives the random draws."""
+    n_layers = len(learner.policy.sizes)
+    leaves, _ = _read(path, learner.policy, treedef_of=ppo_state_treedef)
+    raw = _layout(leaves[:-1], n_layers)
+    _check_envs(path, raw, learner.cfg.num_envs)
+    _check_adam(path, "PPO's", raw.vf_adam,
+                [leaves[0]] + leaves[4:4 + 4 * n_layers])
+    t = from_numpy_state(raw, draws, learner.device)
+    return PPOState(params=t.params, opt=t.vf_adam, env_state=t.env_state,
+                    new=t.new, draws=draws, cur_ep_ret=t.cur_ep_ret,
+                    cur_ep_len=t.cur_ep_len,
+                    lr_scale=torch.as_tensor(np.asarray(leaves[-1],
+                                                        np.float32),
+                                             device=learner.device))
+
+
+def load_gail_state(path: str, learner: GAIL, draws: Draws) -> GAILState:
+    """The whole training state of a GAIL checkpoint (written by the JAX
+    package, e.g. the bundled ``train_ckpt_gail_r4``, or by :func:`save`)
+    for ``learner``: its TRPO state, the discriminator's params and Adam,
+    and the expert cursor; ``draws`` gives the random draws.  The
+    counterpart of JAX's ``checkpoint.load(path, gail_state)``."""
+    n_layers = len(learner.policy.sizes)
+    leaves, _ = _read(path, learner.policy, treedef_of=gail_state_treedef)
+    raw = _layout(leaves[:-13], n_layers)
+    _check_envs(path, raw, learner.trpo.cfg.num_envs)
+    net, rms, d_adam = leaves[-13:-7], leaves[-7:-4], leaves[-4:-1]
+    disc = learner.disc
+    sizes = [disc.ob_dim + disc.ac_dim, disc.hidden_size, disc.hidden_size, 1]
+    for k, (n_in, n_out) in enumerate(zip(sizes, sizes[1:])):
+        b, w = net[2 * k], net[2 * k + 1]
+        if w.shape != (n_in, n_out) or b.shape != (n_out,):
+            raise ValueError(f"{path!r}: discriminator layer {k} has w "
+                             f"{w.shape}, b {b.shape}; the learner expects "
+                             f"{(n_in, n_out)}, {(n_out,)}")
+    _check_adam(path, "the discriminator's", d_adam, net)
+    dev = learner.device
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    return GAILState(
+        trpo=from_numpy_state(raw, draws, dev),
+        d_params={"net": [{"b": t(net[2 * k]), "w": t(net[2 * k + 1])}
+                          for k in range(3)],
+                  "obs_rms": RunningMeanStd(*(t(x) for x in rms))},
+        d_adam=adam.AdamState(*(t(x) for x in d_adam)),
+        expert_ptr=torch.as_tensor(np.asarray(leaves[-1]), device=dev).to(
+            torch.int64))
 
 
 def _np(x, dtype=np.float32):
@@ -238,19 +351,31 @@ def _write(path: str, leaves: list, treedef: str) -> str:
 
 
 def save(path: str, state) -> str:
-    """Write a ``TRPOState``, or a ``LaneState`` of independent learners
-    (``algos/lanes.py``), to ``<path>.npz`` in the JAX layout: a lane
-    state as the lane tool writes its ``imit15_state.npz``, every leaf
-    stacked over the lanes on axis 0.  The structure string is the current
-    JAX ``TRPOState``'s (``clip_id`` None, or an array for a multi-clip
-    env), the dtypes JAX's.  Returns the file's path."""
+    """Write a ``TRPOState``, a ``LaneState`` of independent learners
+    (``algos/lanes.py``), a ``PPOState`` or a ``GAILState`` to
+    ``<path>.npz`` in the JAX layout: a lane state as the lane tool writes
+    its ``imit15_state.npz``, every leaf stacked over the lanes on axis 0.
+    The structure string is the current JAX state's (``clip_id`` None, or
+    an array for a multi-clip env), the dtypes JAX's.  Returns the file's
+    path."""
+    treedef_of, extra = trpo_state_treedef, []
+    if isinstance(state, GAILState):
+        d = state.d_params
+        extra = [_np(x) for x in disc_leaves(d) + list(d["obs_rms"])
+                 + list(state.d_adam)] + [_np(state.expert_ptr, np.int32)]
+        treedef_of, state = gail_state_treedef, state.trpo
+    if isinstance(state, PPOState):
+        treedef_of, extra = ppo_state_treedef, [_np(state.lr_scale)]
+        opt = state.opt
+    else:
+        opt = state.vf_adam
     es = state.env_state
-    leaves = _state_leaves(state.params, state.vf_adam, es, state.new,
+    leaves = _state_leaves(state.params, opt, es, state.new,
                            state.cur_ep_ret, state.cur_ep_len,
                            tuple(state.new.shape[:-1]))
     form = "none" if es.clip_id is None else "array"
-    return _write(path, leaves, trpo_state_treedef(len(state.params["pol"]),
-                                                   form))
+    return _write(path, leaves + extra,
+                  treedef_of(len(state.params["pol"]), form))
 
 
 def read_lanes(path: str, policy: MlpPolicy) -> types.SimpleNamespace:

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from deepmimic_mujoco_torch.algos import runner
+from deepmimic_mujoco_torch.algos.trpo import Draws
 from deepmimic_mujoco_torch.envs.dp_env_v3 import DPEnvV3
 from deepmimic_mujoco_torch.io_utils import checkpoint
 from deepmimic_mujoco_torch.models.policy import MlpPolicy
@@ -392,3 +393,205 @@ def test_lane_segment_update_on_the_card_matches_the_cpu(cuda):
     assert torch.equal(ic.stepsize.cpu(), ip.stepsize)
     assert torch.equal(ic.accepted.cpu(), ip.accepted)
     assert rel(pc, pp) <= 1e-4 and rel(vc, vp) <= 1e-3 and rel(lc, lp) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# GAIL and PPO
+
+EXPERT = os.path.join(os.path.dirname(__file__), "..", "assets", "expert",
+                      "walk_expert.npz")
+GAIL_ENV = dict(clip="walk", reward_mode="imitation_dm",
+                control_mode="pd_residual", n_substeps=2,
+                max_episode_steps=300, obs_mode="full")
+
+
+def _to(tree, dev):
+    """A params dict (lists of layers, an obs-RMS triple) on ``dev``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return type(tree)(*(_to(v, dev) for v in tree))
+
+
+def _rel(a, b):
+    return float((a.cpu() - b.cpu()).abs().max()) / max(
+        1.0, float(b.abs().max()))
+
+
+def _gail(dev, B, T, d_step=1):
+    from deepmimic_mujoco_torch.algos.dataset import MujocoDset
+    from deepmimic_mujoco_torch.algos.gail import GAIL, GAILConfig
+    from deepmimic_mujoco_torch.algos.trpo import TRPOConfig
+
+    d = MujocoDset(EXPERT)
+    env = DPEnvV3(model=build_humanoid(device=dev), **GAIL_ENV)
+    return GAIL(env, MlpPolicy(ob_dim=68, ac_dim=28), d.obs, d.acs,
+                GAILConfig(trpo=TRPOConfig(horizon=T, num_envs=B,
+                                           reset_mode="rsi"),
+                           d_step=d_step))
+
+
+def test_gail_control_steps_launch_eight_kernels(cuda):
+    """A discriminator-rewarded rollout of the recipe (8 envs × 5 steps):
+    8 ``apgd_solve`` launches per control step and no other APGD
+    launch."""
+    learner = _gail("cuda", 8, 5)
+    st = learner.init(torch.Generator(device="cuda").manual_seed(0))
+    n0 = (ops.apgd_solve.launches, ops.apgd_solve_lanes.launches,
+          ops.apgd_solve_wide.launches)
+    t = st.trpo
+    seg = learner.trpo._rollout(
+        t.params, t.env_state, t.new, Draws(t.draws.generator), t.cur_ep_ret,
+        t.cur_ep_len, reward_fn=lambda ob, ac: learner.disc.reward(
+            st.d_params, ob, ac))[0]
+    torch.cuda.synchronize()
+    assert (ops.apgd_solve.launches - n0[0],
+            ops.apgd_solve_lanes.launches - n0[1],
+            ops.apgd_solve_wide.launches - n0[2]) == (8 * 5, 0, 0)
+    assert seg["ep_true"].shape == (5, 8) and bool(
+        torch.isfinite(seg["rew"]).all())
+
+
+def test_gail_d_step_and_segment_update_on_the_card_match_the_cpu(cuda):
+    """One exact GAIL d-step (2 minibatches) and one TRPO segment update
+    from the same 8-env × 16-step segment (a rewarded rollout of the recipe
+    on the card), params and permutations, on the card and on the CPU: the
+    discriminator's loss and accuracies and its logits on the segment, the
+    policy's means and the values on the segment within 1e-4 of max(1,
+    max|x|); the parameters within 1e-2 (Adam moves a parameter by about
+    its step size whatever the sign of a rounding-level gradient)."""
+    from deepmimic_mujoco_torch.algos import adam
+    from deepmimic_mujoco_torch.algos.gail import disc_leaves
+    from deepmimic_mujoco_torch.algos.trpo import (flatten, policy_leaves,
+                                                   vf_leaves)
+
+    B, T = 8, 16
+    gen = torch.Generator().manual_seed(0)
+    d_perm = torch.randperm(B * T, generator=gen)
+    vf_perms = torch.stack([torch.randperm(B * T, generator=gen)
+                            for _ in range(3)])
+
+    class Fixed(Draws):
+        def d_permutation(self, n, device):
+            return d_perm.to(device)
+
+        def vf_permutations(self, n, epochs, device):
+            return vf_perms.to(device)
+
+    ref = _gail("cuda", B, T, d_step=2)
+    st = ref.init(torch.Generator(device="cuda").manual_seed(0))
+    t = st.trpo
+    seg = ref.trpo._rollout(
+        t.params, t.env_state, t.new, t.draws, t.cur_ep_ret, t.cur_ep_len,
+        reward_fn=lambda ob, ac: ref.disc.reward(st.d_params, ob, ac))[0]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        learner = _gail(dev, B, T, d_step=2)
+        s = {k: v.to(dev) for k, v in seg.items()}
+        ob, ac = s["ob"].reshape(-1, 68), s["ac"].reshape(-1, 28)
+        d_params, d_adam, ptr, rec = learner._d_update(
+            _to(st.d_params, dev), adam.AdamState(*_to(list(st.d_adam), dev)),
+            st.expert_ptr.to(dev), ob, ac, Fixed(None))
+        params = learner.trpo._segment_update(
+            _to(t.params, dev), adam.AdamState(*_to(list(t.vf_adam), dev)),
+            s, Fixed(None))[0]
+        mean, _ = learner.policy.mean_logstd(params, ob)
+        out[dev] = dict(
+            rec=rec, logits=learner.disc.logits(d_params, ob, ac),
+            mean=mean, value=learner.policy.value(params, ob),
+            d_flat=flatten(disc_leaves(d_params)),
+            pol=flatten(policy_leaves(params)), vf=flatten(vf_leaves(params)),
+            ptr=int(ptr))
+    c, p = out["cuda"], out["cpu"]
+    assert c["ptr"] == p["ptr"] == B * T
+    for k in ("rec", "logits", "mean", "value"):
+        assert _rel(c[k], p[k]) <= 1e-4, k
+    for k in ("d_flat", "pol", "vf"):
+        assert _rel(c[k], p[k]) <= 1e-2, k
+
+
+class _Record(Draws):
+    """Draws from a CPU generator, each kept in ``log``."""
+
+    def __init__(self, log):
+        super().__init__(torch.Generator().manual_seed(0))
+        self.log = log
+
+    def _keep(self, x):
+        self.log.append(x)
+        return x
+
+    def action_noise(self, mean):
+        return self._keep(super().action_noise(mean))
+
+    def fresh_states(self, reset_fn, done, state=None):
+        return self._keep(super().fresh_states(reset_fn, done, state))
+
+    def vf_permutations(self, n, epochs, device):
+        return self._keep(super().vf_permutations(n, epochs, device))
+
+
+class _Replay(Draws):
+    """A ``_Record``'s draws, in order, moved to the run's device."""
+
+    def __init__(self, log):
+        super().__init__(None)
+        self.log = log
+
+    def action_noise(self, mean):
+        return self.log.pop(0).to(mean.device)
+
+    def fresh_states(self, reset_fn, done, state=None):
+        return self.log.pop(0).map(lambda x: x.to(done.device))
+
+    def vf_permutations(self, n, epochs, device):
+        return self.log.pop(0).to(device)
+
+
+def test_ppo_iteration_on_the_card_matches_the_cpu(cuda):
+    """One ``PPO.iteration`` (walk, torque; 16 envs × 16 steps, 4 epochs ×
+    8 minibatches) from the same state and the same draws (the CPU run's,
+    replayed on the card): 4 ``apgd_solve`` launches per env step; the
+    policy's means and the values on the CPU's final obs and the
+    iteration's stats within 1e-4 of max(1, max|x|); the parameters within
+    1e-2."""
+    import dataclasses
+
+    from deepmimic_mujoco_torch.algos import adam
+    from deepmimic_mujoco_torch.algos.ppo import PPO, PPOConfig, train_leaves
+    from deepmimic_mujoco_torch.algos.trpo import flatten
+
+    B, T = 16, 16
+    cpu, card = (PPO(DPEnvV3(model=build_humanoid(device=dev)),
+                     MlpPolicy(ob_dim=56, ac_dim=28),
+                     PPOConfig(horizon=T, num_envs=B))
+                 for dev in ("cpu", "cuda"))
+    log = []
+    st = cpu.init(torch.Generator().manual_seed(1))
+    st_card = dataclasses.replace(
+        st, params=_to(st.params, "cuda"),
+        opt=adam.AdamState(*_to(list(st.opt), "cuda")),
+        env_state=st.env_state.map(lambda x: x.to("cuda")),
+        new=st.new.cuda(), draws=_Replay(log), cur_ep_ret=st.cur_ep_ret.cuda(),
+        cur_ep_len=st.cur_ep_len.cuda(), lr_scale=st.lr_scale.cuda())
+
+    def run(learner, state, obs=None):
+        st1, stats = learner.iteration(state)
+        obs = st1.env_state.obs if obs is None else obs
+        mean, _ = learner.policy.mean_logstd(st1.params, obs)
+        return dict(
+            mean=mean, value=learner.policy.value(st1.params, obs),
+            stats=torch.stack([stats.meankl, stats.surrgain, stats.entropy,
+                               stats.ev_tdlam_before]),
+            flat=flatten(train_leaves(st1.params))), obs
+
+    p, obs = run(cpu, dataclasses.replace(st, draws=_Record(log)))
+    n0 = ops.apgd_solve.launches
+    c, _ = run(card, st_card, obs.cuda())
+    assert ops.apgd_solve.launches - n0 == 4 * T and not log
+    for k in ("mean", "value", "stats"):
+        assert _rel(c[k], p[k]) <= 1e-4, k
+    assert _rel(c["flat"], p["flat"]) <= 1e-2

@@ -16,6 +16,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from deepmimic_mujoco_tpu.algos.ppo import PPO, PPOConfig
 from deepmimic_mujoco_tpu.algos.runner import evaluate as jax_evaluate
 from deepmimic_mujoco_tpu.algos.trpo import TRPO, TRPOConfig
 from deepmimic_mujoco_tpu.envs import DPEnvV3 as JaxDPEnvV3
@@ -297,10 +298,26 @@ def test_cli_evaluate_on_cpu():
 def test_cli_train_sample_and_ppo(case, tmp_path):
     """``--task train`` writes args.json, progress.csv, the monitor CSV
     under the JAX loop's name and the checkpoint; ``--task sample`` writes
-    ragged episodes of stochastic actions; ``--algo ppo`` still raises."""
+    ragged episodes of stochastic actions; ``--algo ppo`` trains 2
+    iterations and writes a checkpoint that JAX's strict
+    ``checkpoint.load`` takes as a ``PPOState``."""
     if case == "ppo":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train_trpo.main(["--algo", "ppo", "--device", "cpu"])
+        state = train_trpo.main([
+            "--task", "train", "--algo", "ppo", "--device", "cpu",
+            "--num-iters", "2", "--num-envs", "2", "--timesteps-per-batch",
+            "8", "--ppo-minibatches", "2", "--ppo-lr-decay", "0.5",
+            "--log-dir", str(tmp_path / "logs"),
+            "--checkpoint-dir", str(tmp_path / "ckpt")])
+        logs = tmp_path / "logs" / "DPEnvV3" / "ppo-walk-0"
+        assert (logs / "progress.csv").read_text().count("\n") == 3
+        like = PPO(JaxDPEnvV3(clip="walk"), JaxMlpPolicy(ob_dim=56, ac_dim=28),
+                   PPOConfig(num_envs=2)).init(jax.random.PRNGKey(0))
+        js = jax_checkpoint.load(str(tmp_path / "ckpt" / "DPEnvV3" /
+                                     "ppo-walk-0" / "trpo_state.npz"), like)
+        np.testing.assert_array_equal(np.asarray(js.params["vf"][1]["w"]),
+                                      state.params["vf"][1]["w"].numpy())
+        assert float(js.lr_scale) == float(state.lr_scale) == 0.25
+        assert float(js.opt.t) == 2 * 4 * 2  # iterations × epochs × mbs
         return
     if case == "sample":
         path = str(tmp_path / "samples.npz")

@@ -20,6 +20,7 @@ _BLOCKER = """
 import runpy, sys
 FORBIDDEN = {forbidden!r}
 TMP = {tmp!r}
+EXPERT = {expert!r}
 
 class Refuse:
     def find_spec(self, name, path=None, target=None):
@@ -38,18 +39,39 @@ sys.argv = ["imitation15_vmapped", "--eval-only", "--device", "cpu",
             "--log-root", TMP + "/logs"]
 runpy.run_module("deepmimic_mujoco_torch.cli.imitation15_vmapped",
                  run_name="__main__")
+sys.argv = ["train_gail", "--device", "cpu", "--expert-path", EXPERT,
+            "--reward-mode", "imitation_dm", "--control-mode", "pd_residual",
+            "--reset-mode", "rsi", "--n-substeps", "2", "--obs-mode", "full",
+            "--num-envs", "2", "--timesteps-per-batch", "2", "--g-step", "1",
+            "--num-iters", "1", "--pretrained", "--bc-max-iters", "2",
+            "--log-dir", TMP + "/glogs", "--checkpoint-dir", TMP + "/gckpt"]
+runpy.run_module("deepmimic_mujoco_torch.cli.train_gail", run_name="__main__")
+sys.argv = ["train_trpo", "--algo", "ppo", "--task", "train", "--device",
+            "cpu", "--num-iters", "1", "--num-envs", "2",
+            "--timesteps-per-batch", "4", "--ppo-minibatches", "2",
+            "--log-dir", TMP + "/plogs", "--checkpoint-dir", TMP + "/pckpt"]
+runpy.run_module("deepmimic_mujoco_torch.cli.train_trpo", run_name="__main__")
 assert not [m for m in sys.modules if m.split(".")[0] in FORBIDDEN]
 """
 
 
 def test_cli_evaluate_runs_with_jax_and_mujoco_refused(tmp_path):
+    """The walk evaluation, the lane tool, GAIL training (BC included) and
+    PPO training run with JAX and MuJoCo refused."""
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
-    code = _BLOCKER.format(forbidden=FORBIDDEN, tmp=str(tmp_path))
+    code = _BLOCKER.format(forbidden=FORBIDDEN, tmp=str(tmp_path),
+                           expert=os.path.join(ROOT, "assets", "expert",
+                                               "walk_expert.npz"))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "Average length: 3.0" in proc.stdout
     assert "| kick |" in proc.stdout and (tmp_path / "out.json").exists()
+    assert "BC iter 1: loss" in proc.stdout and "EpTrueRewMean" in proc.stdout
+    assert (tmp_path / "gckpt" / "DPEnvV3" / "gail-walk-0" /
+            "gail_state.npz").exists()
+    assert (tmp_path / "pckpt" / "DPEnvV3" / "ppo-walk-0" /
+            "trpo_state.npz").exists()
 
 
 def _sources():
