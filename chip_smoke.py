@@ -5,6 +5,11 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --dp-witness`` runs only the [dp-ppo] card-vs-CPU
+check, with the card's solve on the kernel and on the plain version and
+the dual matrix stored in bf16 and in f32, then with planted faults
+(:func:`dp_witness`).
+
 Phases, each printing its lines before the last:
 
 1. device — the card's name and power limit, as ``nvidia-smi`` prints them;
@@ -82,7 +87,22 @@ Phases, each printing its lines before the last:
    train`` in-process at 4096 envs x 64 steps for 2 iterations (env-steps/s,
    rollout and update seconds, finite losses, 4 launches per env step) and
    one ``PPO.iteration`` on the card against the CPU with the CPU run's
-   draws replayed; all before any profiler session; then profiler windows
+   draws replayed; then [dp-ppo], the original DeepMimic PPO stack on the
+   197-D surface from the bundled r5 run (``train_ckpt_dp_ppo_r5``, relu
+   1024-512 actor and critic, read by ``load_dp_ppo_params``):
+   ``RLAgentDriver.test_episodes`` over 512 RSI episodes x horizon 300 from
+   ``dp_frames()`` (the first 64 within 0.03 reward per step and 10% of
+   length of the port's CPU figure, 8 ``apgd_solve`` launches per control
+   step), ``cli.train_ppo`` in-process at the r5 flags (512 envs, resumed)
+   for 3 iterations with a test at the third (per iteration the rollout,
+   absorb and train seconds and the logged metrics; finite losses, the
+   stepsize 2.5e-6, ``Samples`` grown by each iteration's non-end records,
+   the checkpoint read back, 8 launches per control step), one
+   ``train_iteration`` at 16 envs x chunks of 16 steps on the CPU and on the
+   card with the CPU's draws replayed (the params leaf by leaf,
+   :func:`dp_param_diff`), ``cli.train_ppo --surface v3`` at 512 envs x 2
+   iterations (4 launches per env step) and ``cli.get_action``; all before
+   any profiler session; then profiler windows
    of one env step's
    four solves through ``apgd()`` (blocks: four kernels and nothing else),
    and ``torch.profiler`` windows of 5 env steps at 4096 envs and of 3
@@ -199,6 +219,29 @@ GAIL_FRAMES = ("9,28,25,11,24,0,27,28,18,29,21,33,11,37,4,35,4,10,5,14,33,26,"
 # (tests/test_torch_gail.py::test_gail_r4_64_episodes_match_jax, which
 # holds them against JAX's runner.evaluate: 299.33, 0.1562)
 CPU_GAIL = (298.33, 0.1634)
+
+# the original DeepMimic PPO stack: the bundled r5 run (tools/r5_chain.sh:
+# 71-75: --surface deepmimic --motion walk --num-envs 512, resumed; the
+# spec of assets/agents/ct_agent_humanoid_ppo.json; relu 1024-512 actor and
+# critic on the 197-D surface)
+CKPT_DP = os.path.join(ROOT, "train_ckpt_dp_ppo_r5", "deepmimic", "ppo-walk-0",
+                       "ppo_params.npz")
+DP_ENVS = 512                # the r5 run's --num-envs
+DP_HORIZON = 300             # the surface's episode cap
+DP_TRAIN_ITERS = 3           # the run's 700, cut
+# (reward per step, mean episode length) of the port on the CPU over the
+# first 64 of the dp_frames() episodes x 300 steps
+# (tests/test_torch_dp_policy.py::test_r5_evaluation_matches_jax, which
+# holds it against JAX's on the same episodes: 0.3732, 38.05)
+CPU_DP = (0.3732, 38.05)
+
+
+def dp_frames(n: int = DP_ENVS):
+    """The RSI start frames of the [dp-ppo] evaluation: ``n`` of the walk
+    clip's 39 frames from ``np.random.RandomState(SEED)``."""
+    import numpy as np
+
+    return np.random.RandomState(SEED).randint(0, 39, n)
 
 
 def _problem(torch, B: int, a_dtype, gen, nc: int = NC, nl: int = NL):
@@ -1448,6 +1491,529 @@ def _ppo_card_vs_cpu(torch) -> dict:
     return d
 
 
+class _StepCount:
+    """Counts the calls of ``cls.step`` while in use (every env instance of
+    the class, the CLI's own included)."""
+
+    def __init__(self, cls):
+        self.cls, self.n = cls, 0
+
+    def __enter__(self):
+        self.step = step = self.cls.step
+
+        def counted(env, *args, **kw):
+            self.n += 1
+            return step(env, *args, **kw)
+        self.cls.step = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.step = self.step
+
+
+def _dp_eval(torch, ops) -> dict:
+    """[dp-ppo] the r5 params (read by ``load_dp_ppo_params``) in TEST mode:
+    ``RLAgentDriver.test_episodes`` over 512 RSI episodes from
+    :func:`dp_frames`, horizon 300.  The first 64 episodes' reward per step
+    within 0.03 and mean length within 10% of the port's CPU figure
+    (``CPU_DP``); 8 ``apgd_solve`` launches per control step, no other."""
+    from deepmimic_mujoco_torch.dp_policy.draws import Draws
+    from deepmimic_mujoco_torch.dp_policy.ppo_agent import PPOAgent
+    from deepmimic_mujoco_torch.dp_policy.rl_agent import RLAgentDriver
+    from deepmimic_mujoco_torch.envs.deepmimic_surface import (
+        DeepMimicSurfaceEnv,
+    )
+    from deepmimic_mujoco_torch.io_utils import checkpoint
+
+    env = DeepMimicSurfaceEnv(device="cuda")
+    if env.clip_len != 39:
+        raise AssertionError(f"the walk clip has {env.clip_len} frames")
+    agent = PPOAgent.for_env(env, reward_bounds=(0.0, 1.0))
+    params = checkpoint.load_dp_ppo_params(CKPT_DP, agent, "cuda")
+    frames = dp_frames()
+
+    class Frames(Draws):
+        def test_starts(self, reset_fn, n):
+            return env.reset_at(frames[:n])
+
+    driver = RLAgentDriver(env, agent, num_envs=DP_ENVS, draws=Frames(None))
+    print(f"[dp-ppo] eval frames (the first 64 of {DP_ENVS}, "
+          f"np.random.RandomState({SEED})): "
+          + ",".join(str(int(f)) for f in frames[:64]))
+    _zero_counts(ops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _StepCount(DeepMimicSurfaceEnv) as steps:
+        ret, length = driver.test_episodes(params, n_episodes=DP_ENVS,
+                                           horizon=DP_HORIZON)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = _counts(ops)
+    rets, lens = driver.test_returns.cpu(), driver.test_lengths.cpu()
+    r64 = float(rets[:64].sum() / lens[:64].sum())
+    l64 = float(lens[:64].double().mean())
+    rec = {"Test_Return": ret, "Test_Length": length, "seconds": dt,
+           "env_steps_per_s": float(lens.sum()) / dt,
+           "control_steps": steps.n,
+           "apgd_launches_per_control_step": n["apgd_solve"] / steps.n,
+           "launches": n, "reward_per_step_64": r64, "length_64": l64,
+           "reward_per_step": float(rets.sum() / lens.sum()),
+           "max_length": int(lens.max())}
+    print(f"[dp-ppo] eval r5, {DP_ENVS} RSI episodes x horizon {DP_HORIZON} "
+          f"(test_episodes, the deterministic policy): Test_Return "
+          f"{ret:.4f}, Test_Length {length:.2f} (longest {rec['max_length']}"
+          f"), reward per step {rec['reward_per_step']:.4f}; {dt:.2f} s, "
+          f"{rec['env_steps_per_s']:.1f} env-steps/s (the sum of the lengths "
+          f"over the wall time), {steps.n} control steps; the first 64 "
+          f"episodes: reward per step {r64:.4f}, mean length {l64:.2f} (the "
+          f"port's CPU: {CPU_DP[0]}, {CPU_DP[1]}); APGD launches per control "
+          f"step {rec['apgd_launches_per_control_step']:.2f} ({n})")
+    if not (abs(r64 - CPU_DP[0]) <= 0.03
+            and abs(l64 - CPU_DP[1]) <= 0.1 * CPU_DP[1]):
+        raise AssertionError(f"[dp-ppo] eval off the CPU's figure: {rec}")
+    if n != {"apgd_solve": 8 * steps.n, "apgd_solve_lanes": 0,
+             "apgd_solve_wide": 0}:
+        raise AssertionError(f"[dp-ppo] eval APGD launches {n}")
+    return rec
+
+
+def _dp_train(torch, ops, train_ppo, tmp: str) -> dict:
+    """[dp-ppo] ``cli.train_ppo`` in-process at the r5 run's flags, cut:
+    ``--surface deepmimic --motion walk --num-envs 512 --num-iters 3
+    --resume <r5> --test-every 3`` into ``tmp``.  Per iteration the
+    rollout, absorb and train seconds (between synchronizations), env steps
+    and the logged metrics; the losses finite, ``actor_stepsize`` 2.5e-6,
+    ``Samples`` grown by each train step's non-end records (in f32), the
+    final ``ppo_params.npz`` read back, 8 launches per control step."""
+    import numpy as np
+
+    from deepmimic_mujoco_torch.dp_policy.ppo_agent import PPOAgent
+    from deepmimic_mujoco_torch.dp_policy.rl_agent import RLAgentDriver
+    from deepmimic_mujoco_torch.envs.deepmimic_surface import (
+        DeepMimicSurfaceEnv,
+    )
+    from deepmimic_mujoco_torch.io_utils import checkpoint
+
+    iters, cur = [], {"rollout": 0.0, "absorb": 0.0, "train": 0.0,
+                      "chunks": 0, "non_end": 0}
+    orig = {k: getattr(RLAgentDriver, k) for k in (
+        "_rollout", "_absorb_chunk", "_train", "train_iteration")}
+
+    def rollout(self, *a):
+        cur["chunks"] += 1
+        return _timed(orig["_rollout"], cur, "rollout")(self, *a)
+
+    def train(self, params):
+        cur["non_end"] = int((~self.replay_buffer.end_mask()).sum())
+        return _timed(orig["_train"], cur, "train")(self, params)
+
+    def iteration(self, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig["train_iteration"](self, *a)
+        torch.cuda.synchronize()
+        iters.append({**cur, "wall": time.perf_counter() - t0,
+                      "env_steps": cur["chunks"] * self.chunk
+                      * self.num_envs})
+        cur.update(rollout=0.0, absorb=0.0, train=0.0, chunks=0)
+        return out
+
+    RLAgentDriver._rollout, RLAgentDriver._train = rollout, train
+    RLAgentDriver._absorb_chunk = _timed(orig["_absorb_chunk"], cur, "absorb")
+    RLAgentDriver.train_iteration = iteration
+    _zero_counts(ops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with _StepCount(DeepMimicSurfaceEnv) as steps:
+            params = train_ppo.main([
+                "--surface", "deepmimic", "--motion", "walk", "--num-envs",
+                str(DP_ENVS), "--num-iters", str(DP_TRAIN_ITERS), "--resume",
+                CKPT_DP, "--test-every", str(DP_TRAIN_ITERS), "--device",
+                "cuda", "--seed", str(SEED),
+                "--log-dir", os.path.join(tmp, "logs"),
+                "--checkpoint-dir", os.path.join(tmp, "ckpt")])
+        torch.cuda.synchronize()
+    finally:
+        for k, fn in orig.items():
+            setattr(RLAgentDriver, k, fn)
+    dt = time.perf_counter() - t0
+    n = _counts(ops)
+    run = os.path.join("deepmimic", f"ppo-walk-{SEED}")
+    with open(os.path.join(tmp, "logs", run, "progress.csv")) as fh:
+        rows = [r.split(",") for r in fh.read().strip().splitlines()]
+    logged = [{k: float(v) for k, v in zip(rows[0], r) if v} for r in rows[1:]]
+    samples = float(checkpoint.load_dp_ppo_params(CKPT_DP, PPOAgent(197, 36),
+                                                  "cpu")["sample_count"])
+    ok = len(iters) == len(logged) == DP_TRAIN_ITERS
+    for it, (ph, row) in enumerate(zip(iters, logged)):
+        samples = float(np.float32(samples) + np.float32(ph["non_end"]))
+        ok &= row["Samples"] == samples
+        ok &= all(np.isfinite(row[k]) for k in (
+            "critic_loss", "actor_loss", "clip_frac", "adv_mean", "adv_std"))
+        ok &= abs(row["actor_stepsize"] - 2.5e-6) < 1e-12
+        print(f"[dp-ppo] train iteration {it}: rollout {ph['rollout']:.3f} s "
+              f"({ph['chunks']} chunks), absorb {ph['absorb']:.3f} s, train "
+              f"{ph['train']:.3f} s, {ph['env_steps']} env steps, "
+              f"{ph['env_steps'] / ph['wall']:.1f} env-steps/s over "
+              f"{ph['wall']:.3f} s; Samples {row['Samples']:.0f} (+"
+              f"{ph['non_end']} non-end records), critic_loss "
+              f"{row['critic_loss']:.5f}, actor_loss {row['actor_loss']:.5f}, "
+              f"clip_frac {row['clip_frac']}, adv_mean {row['adv_mean']:.5f}, "
+              f"adv_std {row['adv_std']:.5f}, avg_path_reward "
+              f"{row.get('avg_path_reward', float('nan')):.4f}, "
+              f"actor_stepsize {row['actor_stepsize']:.3e}")
+    back = checkpoint.load_dp_ppo_params(
+        os.path.join(tmp, "ckpt", run, "ppo_params.npz"),
+        PPOAgent(197, 36), "cpu")
+    ok &= float(back["sample_count"]) == samples == float(
+        params["sample_count"])
+    last = logged[-1]
+    rec = {"seconds": dt, "iterations": iters, "logged": logged,
+           "control_steps": steps.n, "launches": n,
+           "apgd_launches_per_control_step": n["apgd_solve"] / steps.n,
+           "env_steps_per_s": sum(p["env_steps"] for p in iters)
+           / sum(p["wall"] for p in iters)}
+    print(f"[dp-ppo] train CLI, the r5 flags at {DP_ENVS} envs, "
+          f"{DP_TRAIN_ITERS} iterations resumed from r5: {dt:.2f} s in all "
+          f"(the test and checkpoints included), {rec['env_steps_per_s']:.1f} "
+          f"env-steps/s over the iterations; Test_Return "
+          f"{last.get('Test_Return')}, Test_Length {last.get('Test_Length')} "
+          f"at iteration {DP_TRAIN_ITERS}; ppo_params.npz reads back "
+          f"(Samples {float(back['sample_count']):.0f}); APGD launches per "
+          f"control step {rec['apgd_launches_per_control_step']:.2f} over "
+          f"{steps.n} control steps ({n}); checks {ok}")
+    if not ok or "Test_Return" not in last:
+        raise AssertionError(f"[dp-ppo] train CLI run: {rec}")
+    if n != {"apgd_solve": 8 * steps.n, "apgd_solve_lanes": 0,
+             "apgd_solve_wide": 0}:
+        raise AssertionError(f"[dp-ppo] train APGD launches {n}")
+    return rec
+
+
+# the card-vs-CPU check of one original-stack train iteration, as
+# max|card − CPU| over max(1, max|CPU|): the rollout's actions, the
+# buffer's logps and rewards and the metrics within 1e-5, the labels
+# equal.  The buffer's states are the physics' 197-D obs after up to 32
+# control steps: storing the dual matrix in bf16 (the surface's storage)
+# turns 1-ulp f32 differences of the card's products into bf16 ulps, so
+# they read 2.96e-5 with the kernel and 3.04e-5 with the plain solve on
+# the card, 5.0e-6 and 7.0e-6 with f32 storage (python3 chip_smoke.py
+# --dp-witness on an H100 80GB HBM3 at 700 W): bound 5e-5.  The
+# parameters by dp_param_diff: the actor's step, 2.5e-6 times its
+# momentum, moves by 5e-4 to 2.6e-3 of its size in those four runs (its
+# gradient divides the actions' offsets from the mean, 1e-6 apart, by the
+# noise's variance), a skipped momentum step by 0.34 or more: bound 1e-2
+DP_CVC_BOUNDS = {"actions": 1e-5, "logps": 1e-5, "rewards": 1e-5,
+                 "labels": 0.0, "metrics": 1e-5, "states": 5e-5}
+DP_PARAM_BOUNDS = {"exact": 0.0, "leaves": 1e-3, "steps": 1e-2}
+
+
+def _dp_named_leaves(params: dict) -> list:
+    """(name, kind, tensor) of each leaf of an original-stack params dict:
+    kind ``exact`` for the counts (the normalizers' and ``sample_count``)
+    and ``actor_stepsize``, ``net`` for the nets' and their momentum's
+    leaves, ``leaf`` for the normalizers' statistics."""
+    out = []
+    for k in sorted(params):
+        v = params[k]
+        layers = v if k in ("actor", "critic") else (
+            v.m if k.endswith("_opt") else None)
+        if layers is not None:
+            out += [(f"{k}[{i}].{n}", "net", layer[n])
+                    for i, layer in enumerate(layers) for n in sorted(layer)]
+        elif hasattr(v, "_fields"):
+            out += [(f"{k}.{f}", "exact" if f == "count" else "leaf", x)
+                    for f, x in zip(v._fields, v)]
+        else:
+            out.append((k, "exact", v))
+    return out
+
+
+def dp_param_diff(p0: dict, p1: dict, ref: dict) -> dict:
+    """Original-stack params ``p1`` against ``ref``, both one train step
+    from ``p0``, leaf by leaf (read in f64):
+
+    * ``exact``: the largest difference of a count or of
+      ``actor_stepsize`` (f32 sums of whole numbers and a constant, alike on
+      every device);
+    * ``leaves``: the largest over the other leaves of max|p1 − ref| over
+      max(1, max|ref|);
+    * ``steps``: the largest over the nets' and their momentum's leaves of
+      ‖p1 − ref‖ over ‖ref − p0‖, the step's own size (the actor moves by
+      about 1e-8 per step, which its weights would hide in ``leaves``).
+
+    Also ``worst``: the leaf that gave each figure."""
+    out = {"exact": 0.0, "leaves": 0.0, "steps": 0.0}
+    worst = {}
+
+    def keep(group, name, value):
+        if value > out[group] or group not in worst:
+            out[group] = max(out[group], value)
+            worst[group] = name
+
+    for (name, kind, a), (_, _, b), (_, _, z) in zip(
+            _dp_named_leaves(p1), _dp_named_leaves(ref),
+            _dp_named_leaves(p0)):
+        a, b, z = (x.detach().cpu().double() for x in (a, b, z))
+        d = (a - b).abs()
+        if kind == "exact":
+            keep("exact", name, float(d.max()))
+            continue
+        keep("leaves", name, float(d.max()) / max(1.0, float(b.abs().max())))
+        if kind == "net":
+            step, gap = float((b - z).norm()), float(d.norm())
+            keep("steps", name, gap / step if step > 0 else (
+                0.0 if gap == 0 else float("inf")))
+    return {**out, "worst": worst}
+
+
+def plant_fault(agent, fault: str) -> None:
+    """Make ``agent``'s train step wrong in one of the ways the card-vs-CPU
+    check must catch: ``critic`` skips the critic's momentum step of the
+    first minibatch, ``actor`` the actor's, ``sample_count`` adds 2 to the
+    sample count."""
+    if fault == "sample_count":
+        train = agent.train_on_batch
+
+        def counted(*a, **kw):
+            params, metrics = train(*a, **kw)
+            return {**params,
+                    "sample_count": params["sample_count"] + 2}, metrics
+
+        agent.train_on_batch = counted
+        return
+    if fault not in ("critic", "actor"):
+        raise ValueError(f"unknown fault {fault!r}")
+    step, calls = agent._minibatch_step, []
+
+    def skipped(params, c_rows, a_rows):
+        out = step(params, c_rows, a_rows)
+        calls.append(1)
+        if len(calls) > 1:
+            return out
+        return ({**out[0], fault: params[fault],
+                 f"{fault}_opt": params[f"{fault}_opt"]},) + out[1:]
+
+    agent._minibatch_step = skipped
+
+
+def _dp_iteration(torch, dev: str, log: list | None,
+                  solver_dtype: str = "bf16", solve: str = "kernel",
+                  fault: str | None = None) -> dict:
+    """One ``RLAgentDriver.train_iteration`` at 16 envs x chunks of 16 steps
+    from the r5 params with a small spec (BatchSize 128, MiniBatchSize 32)
+    on ``dev``: with ``log`` None its draws come from a generator and are
+    recorded into the record's ``log``, else ``log``'s are replayed.
+    ``solver_dtype`` is the dual matrix's storage; ``solve="plain"`` swaps
+    the solver's APGD dispatch for the plain version (on any device);
+    ``fault`` is planted by :func:`plant_fault`."""
+    from deepmimic_mujoco_torch.dp_policy.draws import Draws
+    from deepmimic_mujoco_torch.dp_policy.ppo_agent import PPOAgent
+    from deepmimic_mujoco_torch.dp_policy.rl_agent import RLAgentDriver
+    from deepmimic_mujoco_torch.envs.deepmimic_surface import (
+        DeepMimicSurfaceEnv,
+    )
+    from deepmimic_mujoco_torch.io_utils import checkpoint
+    from deepmimic_mujoco_torch.ops import apgd as ops
+    from deepmimic_mujoco_torch.physics import solver
+    from deepmimic_mujoco_torch.physics.humanoid import build_humanoid
+
+    record, queue = log is None, [] if log is None else list(log)
+
+    class Seam(Draws):
+        def _next(self, fresh, to):
+            if record:
+                queue.append(fresh())
+                return queue[-1]
+            return to(queue.pop(0))
+
+        def rollout_chunk(self, steps, n_envs, action_size, device):
+            return self._next(
+                lambda: super(Seam, self).rollout_chunk(
+                    steps, n_envs, action_size, device),
+                lambda x: tuple(y.to(device) for y in x))
+
+        def fresh_states(self, reset_fn, done):
+            return self._next(
+                lambda: super(Seam, self).fresh_states(reset_fn, done),
+                lambda x: x.map(lambda y: y.to(done.device)))
+
+        def minibatch_indices(self, p_critic, *a):
+            return self._next(
+                lambda: super(Seam, self).minibatch_indices(p_critic, *a),
+                lambda x: tuple(y.to(p_critic.device) for y in x))
+
+    B, T = 16, 16
+    spec = {"BatchSize": 128, "MiniBatchSize": 32}
+    env = DeepMimicSurfaceEnv(model=build_humanoid(
+        device=dev, solver_dtype=solver_dtype))
+    agent = PPOAgent.for_env(env, spec=spec)
+    if fault:
+        plant_fault(agent, fault)
+    params = checkpoint.load_dp_ppo_params(CKPT_DP, agent, dev)
+    draws = Seam(torch.Generator().manual_seed(SEED) if record else None)
+    driver = RLAgentDriver(env, agent, num_envs=B, chunk=T, draws=draws)
+    trajs, bufs = [], {}
+    rollout, train = driver._rollout, driver._train
+
+    def rec_rollout(p, st):
+        st, traj = rollout(p, st)
+        trajs.append(traj)
+        return st, traj
+
+    def rec_train(p):
+        buf = driver.replay_buffer
+        n = buf.get_current_size()
+        bufs.update({k: torch.as_tensor(buf.get_all(k)) for k in (
+            "states", "actions", "logps", "rewards")})
+        bufs["labels"] = torch.as_tensor(
+            buf._terminate[:n] * 4 + buf.end_mask() * 2
+            + buf.flag_mask(1)).float()
+        return train(p)
+
+    def plain(a, b, mu, f0, *, iterations, nc, nl, layout="blocks"):
+        return ops._apgd_scan(a, b, mu, f0, iterations=iterations, nc=nc,
+                              nl=nl)
+
+    driver._rollout, driver._train = rec_rollout, rec_train
+    kept = solver.apgd
+    if solve == "plain":
+        solver.apgd = plain
+    elif solve != "kernel":
+        raise ValueError(f"unknown solve {solve!r}")
+    try:
+        p1, _, metrics = driver.train_iteration(
+            params, env.reset_at(dp_frames(B)))
+    finally:
+        solver.apgd = kept
+    return {"actions": torch.cat([t[1] for t in trajs]).cpu(), **bufs,
+            "metrics": torch.tensor([metrics[k] for k in sorted(metrics)]),
+            "obs_steps": torch.cat([t[0] for t in trajs]).cpu(),
+            "p0": params, "p1": p1, "log": queue if record else None,
+            "left": len(queue)}
+
+
+def _dp_card_vs_cpu(torch, solver_dtype: str = "bf16", solve: str = "kernel",
+                    faults: tuple = (), check: bool = True) -> dict:
+    """[dp-ppo] one train iteration (:func:`_dp_iteration`) on the CPU and
+    then on the card with the CPU run's draws replayed: the rollout's
+    actions, the buffer's logps, rewards, end marks, terminate labels and
+    flags, and the metrics within 1e-5 of max(1, max|x|), the buffer's
+    states within ``DP_CVC_BOUNDS["states"]``, the parameters within
+    ``DP_PARAM_BOUNDS`` (:func:`dp_param_diff`).  Then each of ``faults``
+    planted on the card (:func:`plant_fault`) must fail the parameters'
+    check.  ``check`` False reports without failing (the witness runs)."""
+    cpu = _dp_iteration(torch, "cpu", None, solver_dtype)
+    card = _dp_iteration(torch, "cuda", cpu["log"], solver_dtype, solve)
+    label = (f"[dp-ppo] one train_iteration, 16 envs x chunks of 16, "
+             f"BatchSize 128, MiniBatchSize 32, A {solver_dtype}, the card's "
+             f"solve {solve}")
+    keys = list(DP_CVC_BOUNDS)
+    shapes = {k: (tuple(card[k].shape), tuple(cpu[k].shape)) for k in keys}
+    if any(a != b for a, b in shapes.values()):
+        raise AssertionError(f"[dp-ppo] card vs CPU shapes differ: {shapes}")
+    d = {k: _rel(card[k], cpu[k]) for k in keys}
+    # how the physics' states part step by step (max diff / max(1, max|x|)
+    # of the rollout's obs at each control step)
+    per_step = [_rel(a, b) for a, b in zip(card["obs_steps"],
+                                           cpu["obs_steps"])]
+    p = dp_param_diff(card["p0"], card["p1"], cpu["p1"])
+    print(f"{label}, the CPU's draws replayed on the card: "
+          f"{cpu['states'].shape[0]} records; max diff / max(1, max|x|): "
+          + ", ".join(f"{k} {v:.3e} (bound {DP_CVC_BOUNDS[k]:.0e})"
+                      for k, v in d.items())
+          + "; params " + ", ".join(
+              f"{k} {p[k]:.3e} (bound {DP_PARAM_BOUNDS[k]:.0e}, "
+              f"{p['worst'][k]})" for k in DP_PARAM_BOUNDS)
+          + f"; draws left unreplayed {card['left']}; the obs by control "
+          f"step: " + " ".join(f"{x:.2e}" for x in per_step))
+    ok = (card["left"] == 0
+          and all(d[k] <= DP_CVC_BOUNDS[k] for k in d)
+          and all(p[k] <= DP_PARAM_BOUNDS[k] for k in DP_PARAM_BOUNDS))
+    if check and not ok:
+        raise AssertionError("[dp-ppo] the card's train iteration disagrees "
+                             "with the CPU's")
+    rec = {**d, "params": {k: p[k] for k in DP_PARAM_BOUNDS},
+           "obs_by_step": per_step, "ok": ok}
+    for fault in faults:
+        bad = _dp_iteration(torch, "cuda", cpu["log"], solver_dtype, solve,
+                            fault)
+        pb = dp_param_diff(bad["p0"], bad["p1"], cpu["p1"])
+        caught = [k for k in DP_PARAM_BOUNDS if pb[k] > DP_PARAM_BOUNDS[k]]
+        print(f"{label}, fault planted on the card ({fault}): params "
+              + ", ".join(f"{k} {pb[k]:.3e} ({pb['worst'][k]})"
+                          for k in DP_PARAM_BOUNDS)
+              + f"; over the bound: {caught}")
+        if not caught:
+            raise AssertionError(f"[dp-ppo] the parameters' check missed "
+                                 f"the planted fault {fault!r}")
+        rec[f"fault_{fault}"] = {k: pb[k] for k in DP_PARAM_BOUNDS}
+    return rec
+
+
+def _dp_v3(torch, ops, train_ppo, tmp: str) -> dict:
+    """[dp-ppo] ``cli.train_ppo --surface v3`` in-process: DPEnvV3 (56-D
+    obs, torque, the alive reward) at 512 envs, 2 iterations of a fresh
+    agent: env-steps/s and 4 ``apgd_solve`` launches per env step."""
+    from deepmimic_mujoco_torch.envs.dp_env_v3 import DPEnvV3
+
+    _zero_counts(ops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _StepCount(DPEnvV3) as steps:
+        train_ppo.main(["--surface", "v3", "--motion", "walk", "--num-envs",
+                        str(DP_ENVS), "--num-iters", "2", "--device", "cuda",
+                        "--seed", str(SEED),
+                        "--log-dir", os.path.join(tmp, "logs"),
+                        "--checkpoint-dir", os.path.join(tmp, "ckpt")])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = _counts(ops)
+    with open(os.path.join(tmp, "logs", "v3", f"ppo-walk-{SEED}",
+                           "progress.csv")) as fh:
+        rows = fh.read().strip().splitlines()
+    rec = {"seconds": dt, "env_steps": steps.n * DP_ENVS,
+           "env_steps_per_s": steps.n * DP_ENVS / dt, "launches": n,
+           "apgd_launches_per_env_step": n["apgd_solve"] / steps.n,
+           "last_row": dict(zip(rows[0].split(","), rows[-1].split(",")))}
+    print(f"[dp-ppo] v3 CLI, {DP_ENVS} envs x 2 iterations: {steps.n} env "
+          f"steps per env in {dt:.2f} s (setup, training and checkpoints), "
+          f"{rec['env_steps_per_s']:.1f} env-steps/s; APGD launches per env "
+          f"step {rec['apgd_launches_per_env_step']:.2f} ({n}); last row "
+          + ", ".join(f"{k} {v}" for k, v in rec["last_row"].items()))
+    if not (len(rows) == 3 and n == {"apgd_solve": 4 * steps.n,
+                                     "apgd_solve_lanes": 0,
+                                     "apgd_solve_wide": 0}):
+        raise AssertionError(f"[dp-ppo] v3 run: {rec}")
+    return rec
+
+
+def _dp_get_action() -> dict:
+    """[dp-ppo] ``cli.get_action --arg-file assets/args/run_humanoid3d_walk_
+    args.txt`` on the card: it prints the shape (36,)."""
+    import contextlib
+    import io
+
+    from deepmimic_mujoco_torch.cli import get_action
+
+    buf = io.StringIO()
+    cwd = os.getcwd()
+    os.chdir(ROOT)
+    try:
+        with contextlib.redirect_stdout(buf):
+            ac = get_action.main(["--arg-file", os.path.join(
+                "assets", "args", "run_humanoid3d_walk_args.txt")])
+    finally:
+        os.chdir(cwd)
+    text = buf.getvalue()
+    print("[dp-ppo] get_action on the card: " + " / ".join(
+        text.strip().splitlines()))
+    if "shape: (36,)" not in text or ac.shape != (36,):
+        raise AssertionError(f"[dp-ppo] get_action printed {text!r}")
+    return {"shape": list(ac.shape)}
+
+
 def _profile(torch, runner, env, policy, params, state, steps: int,
              tag: str) -> dict:
     """A ``torch.profiler`` window of ``steps`` env steps (after 2 warm-up
@@ -1767,6 +2333,22 @@ def main() -> int:
         r["launches"]["apgd_solve"] for r in (
             gail["evaluate"], gail["train_resumed"], ppo["train_cli"]))
 
+    # the original DeepMimic PPO stack from the bundled r5 run: evaluation,
+    # the training CLI resumed, one train iteration card vs CPU, the CLI on
+    # v3, get_action; before any profiler session
+    from deepmimic_mujoco_torch.cli import train_ppo
+
+    dp = {"evaluate": _dp_eval(torch, ops)}
+    with tempfile.TemporaryDirectory() as tmp:
+        dp["train_cli"] = _dp_train(torch, ops, train_ppo, tmp)
+    dp["card_vs_cpu"] = _dp_card_vs_cpu(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        dp["v3"] = _dp_v3(torch, ops, train_ppo, tmp)
+    dp["get_action"] = _dp_get_action()
+    launches["apgd_solve"] += sum(
+        dp[k]["launches"]["apgd_solve"] for k in ("evaluate", "train_cli",
+                                                   "v3"))
+
     # one env step's four solves through the dispatch: the wrappers' counts
     # give the launches; profiler windows show what ran on the device (a
     # window may miss a kernel's record, so the most any window saw is read)
@@ -1822,7 +2404,8 @@ def main() -> int:
 
     # 5. report
     kernels = []
-    for name, line in (("apgd_solve", 283), ("apgd_solve_lanes", 149)):
+    # the Pallas kernel bodies: _apgd_kernel and _apgd_kernel_lanes
+    for name, line in (("apgd_solve", 68), ("apgd_solve_lanes", 118)):
         ms, dev, plain_ms = times[name]
         a_main = a if name == "apgd_solve" else entry[name][1](a)
         plan = ops.launch_plan(a_main, NC, lanes=name != "apgd_solve")
@@ -1871,6 +2454,7 @@ def main() -> int:
     kernels[0]["trpo_lanes"] = lanes_rec
     kernels[0]["gail"] = gail
     kernels[0]["ppo"] = ppo
+    kernels[0]["dp_ppo"] = dp
     print(f"[done] {time.perf_counter() - t_start:.1f} s after the imports")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1879,5 +2463,35 @@ def main() -> int:
     return 0
 
 
+def dp_witness() -> int:
+    """``python3 chip_smoke.py --dp-witness``: the [dp-ppo] card-vs-CPU
+    check of one train iteration with the card's solve on the kernel and on
+    the plain version, each with the dual matrix stored in bf16 (the
+    surface's) and in f32, reported without failing; then the kernel's run
+    with each planted fault, which the parameters' check must catch.  The
+    readings say where the card's physics states part from the CPU's."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    from deepmimic_mujoco_torch.ops import apgd as ops
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    ops.load_kernels(("apgd",))
+    rec = {}
+    for dtype in ("bf16", "f32"):
+        for solve in ("kernel", "plain"):
+            faults = (("critic", "actor", "sample_count")
+                      if (dtype, solve) == ("bf16", "kernel") else ())
+            rec[f"{dtype}/{solve}"] = _dp_card_vs_cpu(
+                torch, dtype, solve, faults=faults, check=False)
+    print(json.dumps({"dp_witness": rec}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(dp_witness() if sys.argv[1:] == ["--dp-witness"] else main())

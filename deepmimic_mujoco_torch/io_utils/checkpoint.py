@@ -27,7 +27,14 @@ A ``PPOState`` has the same leaves, with PPO's Adam over the flat
 ``{logstd, pol, vf}`` vector in place of ``vf_adam``, and one more at the
 end: ``lr_scale`` () float32.  A ``GAILState`` is the ``TRPOState``'s
 leaves followed by the discriminator's: its net (b, w) × 3 layers, its
-obs-RMS mean, var, count, its Adam m, v, t and ``expert_ptr`` () int32."""
+obs-RMS mean, var, count, its Adam m, v, t and ``expert_ptr`` () int32.
+
+The original-stack PPO agent's params (``dp_policy/ppo_agent.py``,
+``ppo_params.npz`` of ``cli/train_ppo.py``) are a dict, flattened in
+sorted keys: ``a_norm`` (mean, std, count, mean_sq), ``actor`` (b, w per
+layer), ``actor_opt`` (the momentum of each actor leaf), ``actor_stepsize``,
+``critic``, ``critic_opt``, ``s_norm``, ``sample_count`` and ``val_norm``,
+all float32."""
 
 from __future__ import annotations
 
@@ -43,6 +50,8 @@ from deepmimic_mujoco_torch.algos.gail import GAIL, GAILState, disc_leaves
 from deepmimic_mujoco_torch.algos.lanes import LaneState
 from deepmimic_mujoco_torch.algos.ppo import PPO, PPOState
 from deepmimic_mujoco_torch.algos.trpo import TRPO, Draws, TRPOState
+from deepmimic_mujoco_torch.dp_policy.normalizer import NormalizerState
+from deepmimic_mujoco_torch.dp_policy.ppo_agent import MomentumState, PPOAgent
 from deepmimic_mujoco_torch.envs.types import EnvState
 from deepmimic_mujoco_torch.models.policy import MlpPolicy
 from deepmimic_mujoco_torch.utils.running_stats import RunningMeanStd
@@ -95,6 +104,91 @@ def gail_state_treedef(n_layers: int = 3, clip_id: str = "none") -> str:
 
 
 _CLIP_ID_FORMS = ("absent", "none", "array")
+
+_NORM = "CustomNode(namedtuple[NormalizerState], [*, *, *, *])"
+_DP_KEYS = ("a_norm", "actor", "actor_opt", "actor_stepsize", "critic",
+            "critic_opt", "s_norm", "sample_count", "val_norm")
+
+
+def dp_ppo_params_treedef(n_actor: int = 3, n_critic: int = 3) -> str:
+    """The structure string JAX's ``jax.tree.flatten`` gives for
+    ``PPOAgent.init(key)`` of the original-stack agent whose actor and
+    critic have ``n_actor`` and ``n_critic`` layers."""
+    a, c = _mlp(n_actor), _mlp(n_critic)
+
+    def momentum(m):
+        return f"CustomNode(namedtuple[MomentumState], [{m}])"
+
+    node = {"a_norm": _NORM, "actor": a, "actor_opt": momentum(a),
+            "actor_stepsize": "*", "critic": c, "critic_opt": momentum(c),
+            "s_norm": _NORM, "sample_count": "*", "val_norm": _NORM}
+    return "PyTreeDef({" + ", ".join(f"'{k}': {node[k]}"
+                                      for k in _DP_KEYS) + "})"
+
+
+def _dp_leaves(params: dict) -> list:
+    """A dp-policy params dict's leaves in JAX's order."""
+    def layers(ls):
+        return [x for layer in ls for x in (layer["b"], layer["w"])]
+
+    out = []
+    for k in _DP_KEYS:
+        v = params[k]
+        if k in ("actor", "critic"):
+            out += layers(v)
+        elif k.endswith("_opt"):
+            out += layers(v.m)
+        elif isinstance(v, NormalizerState):
+            out += list(v)
+        else:
+            out.append(v)
+    return out
+
+
+def load_dp_ppo_params(path: str, agent: PPOAgent,
+                       device: torch.device | str) -> dict:
+    """The params of an original-stack PPO agent from ``ppo_params.npz``
+    (written by the JAX package's ``cli/train_ppo.py`` or by :func:`save`),
+    checked against the structure string of ``agent``'s 3-layer nets and
+    against its sizes."""
+    with np.load(path, allow_pickle=False) as z:
+        treedef = bytes(z["__treedef__"]).decode()
+        leaves = [z[f"leaf_{i}"] for i in range(len(z.files) - 1)]
+    if treedef != dp_ppo_params_treedef():
+        raise ValueError(f"{path!r} is not the params of an original-stack "
+                         f"PPO agent:\n  saved:    {treedef}\n  expected: "
+                         f"{dp_ppo_params_treedef()}")
+    it = iter(torch.as_tensor(np.asarray(x, np.float32), device=device)
+              for x in leaves)
+
+    def layers():
+        return [{"b": next(it), "w": next(it)} for _ in range(3)]
+
+    params = {}
+    for k in _DP_KEYS:
+        if k in ("actor", "critic"):
+            params[k] = layers()
+        elif k.endswith("_opt"):
+            params[k] = MomentumState(layers())
+        elif k.endswith("norm"):
+            params[k] = NormalizerState(*(next(it) for _ in range(4)))
+        else:
+            params[k] = next(it)
+    S, A = agent.state_size, agent.action_size
+    sizes = {"actor": [S, 1024, 512, A], "critic": [S, 1024, 512, 1]}
+    for head, dims in sizes.items():
+        for k, layer in enumerate(params[head]):
+            want = (dims[k], dims[k + 1])
+            if tuple(layer["w"].shape) != want:
+                raise ValueError(f"{path!r}: {head} layer {k} has w "
+                                 f"{tuple(layer['w'].shape)}; the agent "
+                                 f"expects {want}")
+    for k, size in (("s_norm", S), ("a_norm", A), ("val_norm", 1)):
+        if tuple(params[k].mean.shape) != (size,):
+            raise ValueError(f"{path!r}: {k} has size "
+                             f"{tuple(params[k].mean.shape)}; expected "
+                             f"({size},)")
+    return params
 
 
 def from_numpy_params(params: dict, device: torch.device | str) -> dict:
@@ -352,12 +446,16 @@ def _write(path: str, leaves: list, treedef: str) -> str:
 
 def save(path: str, state) -> str:
     """Write a ``TRPOState``, a ``LaneState`` of independent learners
-    (``algos/lanes.py``), a ``PPOState`` or a ``GAILState`` to
-    ``<path>.npz`` in the JAX layout: a lane state as the lane tool writes
-    its ``imit15_state.npz``, every leaf stacked over the lanes on axis 0.
-    The structure string is the current JAX state's (``clip_id`` None, or
-    an array for a multi-clip env), the dtypes JAX's.  Returns the file's
-    path."""
+    (``algos/lanes.py``), a ``PPOState``, a ``GAILState`` or the params
+    dict of an original-stack PPO agent to ``<path>.npz`` in the JAX
+    layout: a lane state as the lane tool writes its ``imit15_state.npz``,
+    every leaf stacked over the lanes on axis 0.  The structure string is
+    the current JAX state's (``clip_id`` None, or an array for a
+    multi-clip env), the dtypes JAX's.  Returns the file's path."""
+    if isinstance(state, dict):
+        return _write(path, [_np(x) for x in _dp_leaves(state)],
+                      dp_ppo_params_treedef(len(state["actor"]),
+                                            len(state["critic"])))
     treedef_of, extra = trpo_state_treedef, []
     if isinstance(state, GAILState):
         d = state.d_params

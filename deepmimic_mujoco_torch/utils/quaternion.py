@@ -1,7 +1,8 @@
 """Batched quaternion algebra in PyTorch (port of the functions of
 ``deepmimic_mujoco_tpu/utils/quaternion.py`` that FK, the integrator, the
-root-aware observation and the imitation rewards call).  Quaternions are ``(..., 4)`` in wxyz order; every function broadcasts
-over leading dimensions."""
+root-aware observation, the imitation rewards and the 197-D surface call).
+Quaternions are ``(..., 4)`` in wxyz order; every function broadcasts over
+leading dimensions."""
 
 from __future__ import annotations
 
@@ -119,3 +120,21 @@ def integrate(q: torch.Tensor, omega: torch.Tensor, dt) -> torch.Tensor:
     """Integrate a unit quaternion by the *local-frame* angular velocity
     ``omega`` over ``dt`` (MuJoCo ``mju_quatIntegrate``: q ← q ⊗ exp(ω dt))."""
     return normalize(mul(q, exp_map(omega * dt)))
+
+
+def euler_rxyz_from_quat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (..., 4) → intrinsic-xyz euler angles (..., 3), the
+    humanoid's x, y, z hinge triple: R = Rx(a)·Ry(b)·Rz(c), b = atan2(R02,
+    |cos b|), a = atan2(−R12, R22), c = atan2(−R01, R00).  At the gimbal
+    (|cos b| < 1e-8) a = 0 and c = atan2(R10, R11).  The matrix is that of
+    ``normalize(q)``, in that order, so the angles round as JAX's do."""
+    m = to_mat(normalize(q))
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m12, m22 = m[..., 1, 2], m[..., 2, 2]
+    m10, m11 = m[..., 1, 0], m[..., 1, 1]
+    cy = torch.sqrt(m00 * m00 + m01 * m01)
+    gimbal = cy < 1e-8
+    a = torch.where(gimbal, torch.zeros_like(cy), torch.atan2(-m12, m22))
+    b = torch.atan2(m02, cy)
+    c = torch.where(gimbal, torch.atan2(m10, m11), torch.atan2(-m01, m00))
+    return torch.stack([a, b, c], dim=-1)

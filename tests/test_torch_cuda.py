@@ -1,5 +1,7 @@
 """Tests of the port that need the card: the APGD kernels against their
-plain PyTorch version, and the main path on CUDA against the CPU.
+plain PyTorch version, and the main path on CUDA against the CPU (the
+walk, the recipe, the multi-clip env, the learners and the original
+DeepMimic PPO stack's surface and train step).
 
 Imports no JAX (the card's machine has none), so it runs there without the
 repository's conftest:
@@ -8,6 +10,7 @@ repository's conftest:
 
 Without a card every test skips, decided inside the ``cuda`` fixture."""
 
+import math
 import os
 
 import pytest
@@ -595,3 +598,99 @@ def test_ppo_iteration_on_the_card_matches_the_cpu(cuda):
     for k in ("mean", "value", "stats"):
         assert _rel(c[k], p[k]) <= 1e-4, k
     assert _rel(c["flat"], p["flat"]) <= 1e-2
+
+
+def test_dp_surface_on_the_card_matches_the_cpu(cuda):
+    """The 197-D DeepMimic surface (walk, 2 substeps, ``imitation_dm``),
+    16 envs x 20 steps on the card and on the CPU from the same frames and
+    the same PD actions (the clip's pose plus noise): obs within 1e-3,
+    rewards within 1e-4, equal done flags; 8 ``apgd_solve`` launches per
+    control step, none of the wide kernel."""
+    from deepmimic_mujoco_torch.envs.deepmimic_surface import (
+        DeepMimicSurfaceEnv,
+        targets_to_action,
+    )
+
+    envs = {d: DeepMimicSurfaceEnv(device=d) for d in ("cpu", "cuda")}
+    frames = torch.arange(16) * 5 % 39
+    gen = torch.Generator().manual_seed(2)
+    states = {d: e.reset_at(frames) for d, e in envs.items()}
+    n0 = (ops.apgd_solve.launches, ops.apgd_solve_wide.launches)
+    for t in range(20):
+        poses = envs["cpu"].clip_qpos[(frames + t + 1) % 39, 7:]
+        act = torch.stack([torch.as_tensor(targets_to_action(p.numpy()))
+                           for p in poses])
+        act = act + 0.05 * torch.randn(act.shape, generator=gen)
+        for d, e in envs.items():
+            states[d] = e.step(states[d], act.to(d))
+        c, p = states["cuda"], states["cpu"]
+        assert (c.obs.cpu() - p.obs).abs().max() <= 1e-3, t
+        assert (c.reward.cpu() - p.reward).abs().max() <= 1e-4, t
+        assert torch.equal(c.done.cpu(), p.done), t
+    assert (ops.apgd_solve.launches - n0[0],
+            ops.apgd_solve_wide.launches - n0[1]) == (8 * 20, 0)
+
+
+def test_dp_train_on_batch_on_the_card_matches_the_cpu(cuda):
+    """One ``PPOAgent.train_on_batch`` of the r5 params on a padded
+    buffer (paths ending FAIL, SUCC and NULL; 2 epochs x 4 minibatches of
+    32 rows), the CPU's minibatch indices replayed on the card: the
+    metrics within 1e-5 of max(1, max|x|), the parameters leaf by leaf
+    within ``chip_smoke.DP_PARAM_BOUNDS`` (``chip_smoke.dp_param_diff``:
+    the counts exactly, each leaf within 1e-3 of max(1, max|leaf|), the
+    nets' and their momentum's steps within 1e-3 of the step's size)."""
+    import chip_smoke
+    from deepmimic_mujoco_torch.dp_policy.draws import Draws
+    from deepmimic_mujoco_torch.dp_policy.ppo_agent import PPOAgent
+
+    ckpt = os.path.join(os.path.dirname(__file__), "..",
+                        "train_ckpt_dp_ppo_r5", "deepmimic", "ppo-walk-0",
+                        "ppo_params.npz")
+    gen = torch.Generator().manual_seed(3)
+    n, pad = 200, 56
+    is_end = torch.rand(n + pad, generator=gen) < 0.1
+    is_end[n - 1:] = True
+    kind = torch.randint(0, 3, (n + pad,), generator=gen)
+    z = torch.randn((n + pad, 36), generator=gen)
+    # the logp of each action's normalized noise (noise 0.05, a_norm std
+    # 10: a = mean + 0.5·z), jittered as a policy that moved since
+    logp = (-0.5 * (z * z).sum(1) - 18 * math.log(2 * math.pi)
+            - 36 * math.log(0.05))
+    batch = dict(
+        states=torch.randn((n + pad, 197), generator=gen), actions=z,
+        logps=logp + 0.3 * torch.randn(n + pad, generator=gen),
+        rewards=torch.rand(n + pad, generator=gen), is_end=is_end,
+        is_fail=is_end & (kind == 1), is_succ=is_end & (kind == 2),
+        is_exp=~is_end & (torch.rand(n + pad, generator=gen) < 0.7))
+    valid = torch.arange(n + pad) < n
+    log = []
+
+    class Record(Draws):
+        def minibatch_indices(self, *a):
+            log.append(super().minibatch_indices(*a))
+            return log[-1]
+
+    class Replay(Draws):
+        def minibatch_indices(self, p_critic, *a):
+            return tuple(x.to(p_critic.device) for x in log.pop(0))
+
+    out = {}
+    for dev, draws in (("cpu", Record(torch.Generator().manual_seed(4))),
+                       ("cuda", Replay(None))):
+        agent = PPOAgent(197, 36, spec={"MiniBatchSize": 32, "Epochs": 2})
+        params = checkpoint.load_dp_ppo_params(ckpt, agent, dev)
+        with torch.no_grad():
+            mean = agent.actor_mean(params, batch["states"].to(dev))
+        b = {**{k: v.to(dev) for k, v in batch.items()},
+             "actions": mean + 0.5 * batch["actions"].to(dev)}
+        p1, m = agent.train_on_batch(params, draws, b["states"], b["actions"],
+                                     b["logps"], b["rewards"], b["is_end"],
+                                     b["is_fail"], b["is_succ"], b["is_exp"],
+                                     4, valid=valid.to(dev))
+        out[dev] = (torch.stack([m[k] for k in sorted(m)]), params, p1)
+    assert not log
+    assert _rel(out["cuda"][0], out["cpu"][0]) <= 1e-5
+    d = chip_smoke.dp_param_diff(out["cpu"][1], out["cuda"][2],
+                                 out["cpu"][2])
+    for k, bound in chip_smoke.DP_PARAM_BOUNDS.items():
+        assert d[k] <= bound, (k, d[k], d["worst"][k])

@@ -21,6 +21,7 @@ import runpy, sys
 FORBIDDEN = {forbidden!r}
 TMP = {tmp!r}
 EXPERT = {expert!r}
+SPEC = {spec!r}
 
 class Refuse:
     def find_spec(self, name, path=None, target=None):
@@ -51,17 +52,31 @@ sys.argv = ["train_trpo", "--algo", "ppo", "--task", "train", "--device",
             "--timesteps-per-batch", "4", "--ppo-minibatches", "2",
             "--log-dir", TMP + "/plogs", "--checkpoint-dir", TMP + "/pckpt"]
 runpy.run_module("deepmimic_mujoco_torch.cli.train_trpo", run_name="__main__")
+for surface in ("deepmimic", "v3"):
+    sys.argv = ["train_ppo", "--device", "cpu", "--surface", surface,
+                "--num-envs", "2", "--num-iters", "1", "--agent-spec", SPEC,
+                "--max-episode-steps", "4", "--log-dir", TMP + "/dlogs",
+                "--checkpoint-dir", TMP + "/dckpt"]
+    runpy.run_module("deepmimic_mujoco_torch.cli.train_ppo",
+                     run_name="__main__")
+sys.argv = ["get_action", "--device", "cpu", "--arg-file",
+            "assets/args/run_humanoid3d_walk_args.txt"]
+runpy.run_module("deepmimic_mujoco_torch.cli.get_action", run_name="__main__")
 assert not [m for m in sys.modules if m.split(".")[0] in FORBIDDEN]
 """
 
 
 def test_cli_evaluate_runs_with_jax_and_mujoco_refused(tmp_path):
-    """The walk evaluation, the lane tool, GAIL training (BC included) and
-    PPO training run with JAX and MuJoCo refused."""
+    """The walk evaluation, the lane tool, GAIL training (BC included), PPO
+    training, the original-stack PPO CLI on both surfaces and get_action
+    run with JAX and MuJoCo refused."""
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    spec = tmp_path / "spec.json"
+    spec.write_text('{"BatchSize": 8, "MiniBatchSize": 4}')
     code = _BLOCKER.format(forbidden=FORBIDDEN, tmp=str(tmp_path),
                            expert=os.path.join(ROOT, "assets", "expert",
-                                               "walk_expert.npz"))
+                                               "walk_expert.npz"),
+                           spec=str(spec))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -72,6 +87,10 @@ def test_cli_evaluate_runs_with_jax_and_mujoco_refused(tmp_path):
             "gail_state.npz").exists()
     assert (tmp_path / "pckpt" / "DPEnvV3" / "ppo-walk-0" /
             "trpo_state.npz").exists()
+    for surface in ("deepmimic", "v3"):
+        assert (tmp_path / "dckpt" / surface / "ppo-walk-0" /
+                "ppo_params.npz").exists()
+    assert "shape: (36,)" in proc.stdout
 
 
 def _sources():

@@ -1,12 +1,16 @@
-"""JAX's random draws fed to the port through its one seam, ``trpo.Draws``
-(shared by ``test_torch_gail.py`` and ``test_torch_ppo.py``).
+"""JAX's random draws fed to the port through its seams, ``trpo.Draws``
+(shared by ``test_torch_gail.py`` and ``test_torch_ppo.py``) and
+``dp_policy.draws.Draws`` (``test_torch_dp_policy.py``).
 
 The two stacks cannot share random streams (JAX threefry, torch Philox),
 so the port's draws are replaced by the draws JAX makes from the same keys
 in the same split order: the rollout's action noise and post-done resets
 (``deepmimic_mujoco_tpu/algos/trpo.py:_rollout``, the same in GAIL's and
 PPO's rollouts), the vf and PPO epoch permutations, and GAIL's d-step
-permutation or legacy subsamples (``algos/gail.py:iteration``)."""
+permutation or legacy subsamples (``algos/gail.py:iteration``); for the
+original-stack driver (``deepmimic_mujoco_tpu/dp_policy/rl_agent.py``) the
+chunk's ε-coins and action noise, the auto-resets, the test starts and the
+train step's minibatch indices, in the driver key's split order."""
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +19,7 @@ import torch
 
 from deepmimic_mujoco_tpu.algos.trpo import pick_reset_fn
 from deepmimic_mujoco_torch.algos import trpo
+from deepmimic_mujoco_torch.dp_policy import draws as dp_draws
 
 
 def _t(x):
@@ -73,3 +78,68 @@ class ReplayDraws(trpo.Draws):
         e_idx = jax.vmap(lambda k: jax.random.choice(
             k, n_exp, (mb,), replace=True))(ks[n_mb:])
         return _t(g_idx).long(), _t(e_idx).long()
+
+
+class AgentReplayDraws(dp_draws.Draws):
+    """The draws JAX's ``PPOAgent.train_on_batch`` or ``update`` makes from
+    ``key``, the key it was handed."""
+
+    def __init__(self, key):
+        super().__init__(None)
+        self.key = key
+
+    def _split(self):
+        return self.key
+
+    def minibatch_indices(self, p_critic, p_actor, epochs, n_mb, size):
+        pc, pa = (jnp.asarray(p.numpy()) for p in (p_critic, p_actor))
+        n = pc.shape[0]
+        c_idx, a_idx = [], []
+        for k_ep in jax.random.split(self._split(), epochs):
+            for k_mb in jax.random.split(k_ep, n_mb):
+                k_c, k_a = jax.random.split(k_mb)
+                c_idx.append(jax.random.choice(k_c, n, (size,), p=pc))
+                a_idx.append(jax.random.choice(k_a, n, (size,), p=pa))
+        return _t(np.stack(c_idx)).long(), _t(np.stack(a_idx)).long()
+
+    def epoch_permutations(self, n, epochs, device):
+        return torch.stack([_t(jax.random.permutation(k, n)).long()
+                            for k in jax.random.split(self._split(), epochs)])
+
+
+class DriverReplayDraws(AgentReplayDraws):
+    """The draws of JAX's ``RLAgentDriver`` from its key ``key`` (split at
+    each chunk, train step and test) and its envs' keys ``env_keys`` (B, 2):
+    the auto-resets and test starts are JAX's frames, which ``tenv`` (the
+    port's env) resets to."""
+
+    def __init__(self, key, env_keys, jenv, tenv):
+        super().__init__(key)
+        self.env_keys, self.tenv = env_keys, tenv
+        self._fresh = jax.jit(jax.vmap(
+            lambda k: jenv.reset(jax.random.split(k)[0])))
+        self._starts = jax.jit(jax.vmap(jenv.reset))
+
+    def _split(self):
+        self.key, k = jax.random.split(self.key)
+        return k
+
+    def rollout_chunk(self, steps, n_envs, action_size, device):
+        key, coins, noise = self._split(), [], []
+        for _ in range(steps):
+            key, k_act, k_coin = jax.random.split(key, 3)
+            coins.append(jax.random.uniform(k_coin, (n_envs,)))
+            noise.append(jax.vmap(lambda k: jax.random.normal(
+                k, (action_size,), jnp.float32))(
+                    jax.random.split(k_act, n_envs)))
+        return _t(np.stack(coins)), _t(np.stack(noise))
+
+    def fresh_states(self, reset_fn, done):
+        fresh = self._fresh(self.env_keys)
+        self.env_keys = jnp.where(jnp.asarray(done.numpy())[:, None],
+                                  fresh.key, self.env_keys)
+        return self.tenv.reset_at(np.asarray(fresh.init_idx))
+
+    def test_starts(self, reset_fn, n):
+        st = self._starts(jax.random.split(self._split(), n))
+        return self.tenv.reset_at(np.asarray(st.init_idx))
