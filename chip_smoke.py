@@ -5,6 +5,9 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --wide-vs OLD.cu`` times the wide kernel against
+another version of ``ops/csrc/apgd_wide.cu`` in turns (:func:`wide_vs`).
+
 ``python3 chip_smoke.py --dp-witness`` runs only the [dp-ppo] card-vs-CPU
 check, with the card's solve on the kernel and on the plain version and
 the dual matrix stored in bf16 and in f32, then with planted faults
@@ -14,9 +17,10 @@ Phases, each printing its lines before the last:
 
 1. device — the card's name and power limit, as ``nvidia-smi`` prints them;
 2. build  — compiles ``ops/csrc/apgd.cu`` and ``ops/csrc/apgd_wide.cu``
-   with nvcc, one process per source started together; prints the seconds
-   and each instantiation's registers, spills and static shared memory
-   (``-Xptxas -v``);
+   (one instantiation per count of 16-row tiles) with nvcc, one process
+   per source started together; prints the seconds and each
+   instantiation's registers, spills and static shared memory (``-Xptxas
+   -v``);
 3. kernel — both APGD entry points (``apgd_solve``: (B, ne, ne);
    ``apgd_solve_lanes``: (ne, ne, B)) against the plain PyTorch version on
    the same inputs, at the main path's B = 4096, ne = 32, with f32 and bf16
@@ -33,17 +37,22 @@ Phases, each printing its lines before the last:
    graph (the device time alone, also at 0 and 60 iterations); then the
    wide kernel (``apgd_solve_wide``, ne > 32) against the plain version at
    B = 4096, ne = 64 (16/16 caps) and 139 (uncapped), f32 and bf16 A, and
-   its ``ms``, ``device_ms`` and bound; then [caps]: 16 envs × 20 steps of
-   the humanoid with 16/16 caps and uncapped on the card, every solve
-   through the wide kernel (counted; ``_apgd_scan`` not called), held
-   against the same rollouts on the CPU;
+   at README's exact-cold shape (ne 64, f32 A, 50 iterations), with its
+   ``ms``, ``device_ms``, bound (at the f32 and at the tensor cores' rate)
+   and launch plan (envs and threads per block, shared memory, blocks
+   resident per SM), and ptxas's registers and spills of the
+   instantiations those shapes run; then [caps]: 16 envs × 20 steps of the
+   humanoid with 16/16 caps, uncapped and in the exact-cold configuration
+   on the card, every solve through the wide kernel (counted;
+   ``_apgd_scan`` not called), held against the same rollouts on the
+   CPU;
 4. main path — ``cli.train_trpo --task evaluate`` of the bundled walk
    checkpoint at 4096 and 768 envs × 200 steps, once per kernel layout,
    with the launch counts set to 0 just before each run and read just after,
    before any profiler session; then [train], also before any profiler
    session: ``TRPO.iteration`` at 768 and 4096 envs × 64 steps, g_step 1
-   (bench.py's configuration; one warm-up and 2 timed iterations each,
-   the counts set to 0 just before the timed ones): env-steps/s, the time
+   (bench.py's configuration; one warm-up and one timed iteration each,
+   the counts set to 0 just before the timed one): env-steps/s, the time
    of the rollout, the policy update and the vf epochs, APGD launches per
    env step (4), meankl ≤ 1.5·max_kl and finite stats; one
    ``_segment_update`` on the card against the CPU from the same segment;
@@ -140,9 +149,15 @@ ATOL = 1e-4          # TestAPGD's tolerance: the sums run in another order
 ROLLOUT_ATOL = 1e-3  # 20 physics steps, card (kernel) vs CPU (plain)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM
 F32_FLOPS_PER_S = 67e12      # H100 SXM, f32 without tensor cores
+BF16_TC_FLOPS_PER_S = 989e12  # H100 SXM, bf16 on the tensor cores, dense
 
 
 WIDE = ((16, 16), (37, 28))  # (nc, nl): 16/16 caps (ne 64), uncapped (139)
+# README's exact-cold configuration (build_humanoid(warm_iterations=0,
+# solver_dtype="f32", contact_cap=16, limit_cap=16)): its cold stage-1 solve
+EXACT_COLD = dict(warm_iterations=0, solver_dtype="f32", contact_cap=16,
+                  limit_cap=16)
+EXACT_COLD_ITERS = 50
 TRAIN_HORIZON = 64           # bench.py's TRPO configuration: g_step 1
 MAX_KL = 0.01                # TRPOConfig's default
 
@@ -258,14 +273,18 @@ def _problem(torch, B: int, a_dtype, gen, nc: int = NC, nl: int = NL):
 
 def _ptxas(log: str) -> dict:
     """Registers, spill bytes and static shared memory of each kernel
-    instantiation in nvcc's ``-Xptxas -v`` output, keyed "bf16/slots8" etc."""
+    instantiation in nvcc's ``-Xptxas -v`` output, keyed "bf16/slots8" etc.
+    (``apgd.cu``) and "wide/bf16/kt4" etc. (``apgd_wide.cu``'s 16-row tile
+    counts)."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             dtype = "bf16" if "13__nv_bfloat16" in m.group(1) else "f32"
-            if "apgd_wide_kernel" in m.group(1):
-                name = "wide/" + dtype
+            w = re.search(r"apgd_wide_kernelI\w+?Li(\d+)ELi\d+E",
+                          m.group(1))
+            if w:  # one instantiation per count of 16-row tiles
+                name = f"wide/{dtype}/kt{w.group(1)}"
             else:
                 name = dtype + ("/slots8" if "Lb1E" in m.group(1)
                                 else "/general")
@@ -281,14 +300,16 @@ def _ptxas(log: str) -> dict:
     return out
 
 
-def _bound(B: int, iters: int, nc: int = NC, nl: int = NL, es: int = 2):
+def _bound(B: int, iters: int, nc: int = NC, nl: int = NL, es: int = 2,
+           flops_per_s: float = F32_FLOPS_PER_S):
     """Least time of one solve on an H100 SXM, A of ``es`` bytes an
     element: its bytes (A, b, mu, f0, f each once) over HBM rate against
-    its matvec flops over the f32 rate."""
+    its matvec flops over the f32 rate (or ``flops_per_s``: the tensor
+    cores' bf16 rate for the wide kernel's design)."""
     ne = 3 * nc + nl
     nbytes = B * ne * ne * es + 4 * B * (3 * ne + nc)
     flops = 2 * B * ne * ne * iters
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
@@ -311,54 +332,81 @@ def _capture(solver, runner, env, policy, params, state, steps):
     return seen
 
 
+def _wide_shapes(torch):
+    """(label, nc, nl, dtype of A, iterations timed) of the [kernel] phase's
+    wide-kernel shapes: 16/16 caps (ne 64) and uncapped (ne 139) at the
+    warm stage-1 budget of 15 iterations, A in f32 and bf16, then the
+    exact-cold configuration's cold solve (ne 64, f32 A, 50 iterations)."""
+    out = [(f"ne={3 * nc + nl}", nc, nl, dt, 15) for nc, nl in WIDE
+           for dt in (torch.float32, torch.bfloat16)]
+    out.append(("exact-cold ne=64", EXACT_COLD["contact_cap"],
+                EXACT_COLD["limit_cap"], torch.float32, EXACT_COLD_ITERS))
+    return out
+
+
 def _wide_kernel(torch, ops, timing) -> dict:
     """[kernel] the wide kernel (ne > 32) against the plain version at
-    B = 4096 for each shape of ``WIDE``, f32 and bf16 A, 15/8/60
-    iterations; then its time at 15 iterations: ``ms`` from Python (CUDA
-    events around 50 launches), ``device_ms`` from a CUDA graph."""
+    B = 4096 for each shape of ``_wide_shapes`` (8/15/60 iterations and the
+    timed count); then its launch plan and its time at the timed count:
+    ``ms`` from Python (CUDA events around 50 launches), ``device_ms`` from
+    a CUDA graph (also at 0 and 60 iterations: the fixed cost and the cost
+    of an iteration); the bound at the f32 rate and at the tensor cores'."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     out = {}
-    for nc, nl in WIDE:
+    for label, nc, nl, a_dtype, iters_t in _wide_shapes(torch):
         ne = 3 * nc + nl
-        rec = {"max_abs_err": 0.0}
-        for a_dtype in (torch.float32, torch.bfloat16):
-            a, b, mu, f0 = _problem(torch, B_MAIN, a_dtype, gen, nc, nl)
-            for iters in (15, 8, 60):
-                kw = dict(iterations=iters, nc=nc, nl=nl)
-                ref = ops._apgd_scan(a, b, mu, f0, **kw)
-                got = ops.apgd_solve_wide(a, b, mu, f0, **kw)
-                torch.cuda.synchronize()
-                e = float((got - ref).abs().max())
-                rec["max_abs_err"] = max(rec["max_abs_err"], e)
-                print(f"[kernel] apgd_solve_wide ne={ne} (nc {nc}, nl {nl}) "
-                      f"A={str(a_dtype)[6:]} iters={iters}: max_abs_err "
-                      f"{e:.3e} (|ref| max {float(ref.abs().max()):.3f}, "
-                      f"atol {ATOL})")
-                if not e <= ATOL:
-                    raise AssertionError(f"apgd_solve_wide ne={ne} disagrees "
-                                         f"with the plain version: {e}")
-            kw = dict(iterations=15, nc=nc, nl=nl)
-            es = 2 if a_dtype is torch.bfloat16 else 4
-            ms = timing.eager_ms(
-                lambda: ops.apgd_solve_wide(a, b, mu, f0, **kw), 50)
-            dev = timing.graph_ms(
-                lambda: ops.apgd_solve_wide(a, b, mu, f0, **kw), calls=20,
-                replays=2)
-            plain_ms = timing.eager_ms(
-                lambda: ops._apgd_scan(a, b, mu, f0, **kw), 5)
-            bound_s, bound_by = _bound(B_MAIN, 15, nc, nl, es)
-            smem = ops.wide_smem_bytes(ne, es == 2)
-            rec[str(a_dtype)[6:]] = {
-                "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
-                "bound_ms": bound_s * 1e3, "bound_by": bound_by,
-                "smem_bytes": smem}
-            print(f"[kernel] apgd_solve_wide B={B_MAIN} ne={ne} "
-                  f"{str(a_dtype)[6:]} iters=15: {ms:.4f} ms (CUDA events "
-                  f"over 50 launches from Python), device {dev:.4f} ms (CUDA "
-                  f"graph), plain {plain_ms:.4f} ms, bound "
-                  f"{bound_s * 1e3:.4f} ms ({bound_by}), {smem} B shared "
-                  "memory per block, library call: none")
-        out[ne] = rec
+        es = 2 if a_dtype is torch.bfloat16 else 4
+        dt = str(a_dtype)[6:]
+        a, b, mu, f0 = _problem(torch, B_MAIN, a_dtype, gen, nc, nl)
+        err = 0.0
+        for iters in sorted({8, 15, 60, iters_t}):
+            kw = dict(iterations=iters, nc=nc, nl=nl)
+            ref = ops._apgd_scan(a, b, mu, f0, **kw)
+            got = ops.apgd_solve_wide(a, b, mu, f0, **kw)
+            torch.cuda.synchronize()
+            e = float((got - ref).abs().max())
+            err = max(err, e)
+            print(f"[kernel] apgd_solve_wide {label} (nc {nc}, nl {nl}) "
+                  f"A={dt} iters={iters}: max_abs_err {e:.3e} (|ref| max "
+                  f"{float(ref.abs().max()):.3f}, atol {ATOL})")
+            if not e <= ATOL:
+                raise AssertionError(f"apgd_solve_wide {label} disagrees "
+                                     f"with the plain version: {e}")
+        kw = dict(iterations=iters_t, nc=nc, nl=nl)
+        ms = timing.eager_ms(
+            lambda: ops.apgd_solve_wide(a, b, mu, f0, **kw), 50)
+        dev, dev0, dev60 = (timing.graph_ms(
+            lambda it=it: ops.apgd_solve_wide(
+                a, b, mu, f0, iterations=it, nc=nc, nl=nl), calls=20,
+            replays=2) for it in (iters_t, 0, 60))
+        per_it_us = 1e3 * (dev60 - dev0) / 60
+        plain_ms = timing.eager_ms(
+            lambda: ops._apgd_scan(a, b, mu, f0, **kw), 5)
+        bound_s, bound_by = _bound(B_MAIN, iters_t, nc, nl, es)
+        tc_s, tc_by = _bound(B_MAIN, iters_t, nc, nl, es,
+                             BF16_TC_FLOPS_PER_S)
+        plan = ops.wide_launch_plan(ne, nc, es == 2, B_MAIN)
+        out[f"{label} {dt}"] = {
+            "ne": ne, "a": dt, "iterations": iters_t, "max_abs_err": err,
+            "ms": ms, "device_ms": dev, "device_ms_0_iterations": dev0,
+            "device_ms_60_iterations": dev60, "plain_ms": plain_ms,
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+            "bound_tc_ms": tc_s * 1e3, "bound_tc_by": tc_by,
+            "share_of_bound": bound_s * 1e3 / dev, "plan": plan}
+        print(f"[kernel] apgd_solve_wide B={B_MAIN} {label} {dt} "
+              f"iters={iters_t}: {ms:.4f} ms (CUDA events over 50 launches "
+              f"from Python), device {dev:.4f} ms (CUDA graph; {dev0:.4f} ms "
+              f"at 0 iterations, {dev60:.4f} at 60: {per_it_us:.3f} us per "
+              f"iteration), plain "
+              f"{plain_ms:.4f} ms, bound {bound_s * 1e3:.4f} ms ({bound_by}; "
+              f"{tc_s * 1e3:.4f} ms ({tc_by}) at the tensor cores' bf16 "
+              f"rate), {100 * bound_s * 1e3 / dev:.1f}% of the bound; plan: "
+              f"{plan['tiles']} tiles, {plan['row_tiles_per_warp']} row "
+              f"tiles per warp, {plan['warps_per_env']} warps per env, "
+              f"{plan['envs_per_block']} envs and {plan['threads']} threads "
+              f"per block, {plan['smem']} B shared memory, "
+              f"{plan['blocks_per_sm']} blocks resident per SM, grid "
+              f"{plan['grid']}; library call: none")
     return out
 
 
@@ -374,7 +422,8 @@ def _counts(ops) -> dict:
 
 def _larger_caps(torch, ops, steps: int = 20) -> int:
     """[caps] 16 envs x ``steps`` steps of the humanoid with 16/16 caps
-    (ne = 64) and uncapped (ne = 139), bundled checkpoint: on the card every
+    (ne = 64), uncapped (ne = 139) and in README's exact-cold configuration
+    (ne = 64, f32 A), bundled checkpoint: on the card every
     solve goes to the wide kernel (4 per step; ``_apgd_scan`` is not
     called), held against the same rollout on the CPU (plain versions).
     Returns the wide kernel's launches."""
@@ -386,12 +435,15 @@ def _larger_caps(torch, ops, steps: int = 20) -> int:
 
     idx = torch.arange(16) * 2 % 39
     launches = 0
-    for caps, label in ((16, "caps 16/16, ne 64"),
-                        (1 << 30, "uncapped, ne 139")):
+    for kw, label in ((dict(contact_cap=16, limit_cap=16),
+                       "caps 16/16, ne 64"),
+                      (dict(contact_cap=1 << 30, limit_cap=1 << 30),
+                       "uncapped, ne 139"),
+                      (EXACT_COLD, "exact-cold (f32 A, cold 50-iteration "
+                                   "stage 1), ne 64")):
         out = {}
         for dev in ("cuda", "cpu"):
-            env = DPEnvV3(model=build_humanoid(contact_cap=caps,
-                                               limit_cap=caps, device=dev))
+            env = DPEnvV3(model=build_humanoid(**kw, device=dev))
             policy = MlpPolicy(ob_dim=56, ac_dim=28)
             params = checkpoint.load_trpo_params(CKPT, policy, dev)
             state = env.reset_at(idx)
@@ -447,7 +499,7 @@ def _timed(fn, acc: dict, key: str):
     return run
 
 
-def _train(torch, ops, n_envs: int, timed_iters: int = 2,
+def _train(torch, ops, n_envs: int, timed_iters: int = 1,
            recipe: bool = False) -> dict:
     """[train] ``TRPO.iteration`` at ``n_envs`` envs x 64 steps, g_step 1
     (bench.py's configuration), from random params: one warm-up iteration,
@@ -2094,8 +2146,10 @@ def main() -> int:
                   f"{v.get('spill_bytes')} spill bytes, "
                   f"{v.get('static_smem')} B static smem"
                   for k, v in sorted(found.items())))
-    if sorted(ptxas) != ["bf16/general", "bf16/slots8", "f32/general",
-                         "f32/slots8", "wide/bf16", "wide/f32"]:
+    wide_inst = [f"wide/{dt}/kt{k}" for dt in ("bf16", "f32")
+                 for k in range(3, 13)]
+    if sorted(ptxas) != sorted(["bf16/general", "bf16/slots8", "f32/general",
+                                "f32/slots8", *wide_inst]):
         raise AssertionError(f"ptxas reported {sorted(ptxas)}")
 
     # 3. kernel against plain, then timing at the main path's shape
@@ -2242,6 +2296,11 @@ def main() -> int:
     # the wide kernel (ne > 32) against the plain version, its time, and
     # the larger-caps paths that run it (counts set to 0 before each)
     wide = _wide_kernel(torch, ops, timing)
+    for k in (f"wide/{dt}/kt{n}" for dt in ("bf16", "f32") for n in (4, 9)):
+        print(f"[kernel] apgd_wide.cu {k} (ne {16 * int(k[-1]) - 15}-"
+              f"{16 * int(k[-1])}): {ptxas[k].get('registers')} "
+              f"registers, {ptxas[k].get('spill_bytes')} spill bytes, "
+              f"{ptxas[k].get('static_smem')} B static shared memory")
     wide_launches = _larger_caps(torch, ops)
 
     # 4. main path, before any profiler session: after the profiler has
@@ -2293,7 +2352,7 @@ def main() -> int:
     # the imitation recipe: evaluation of walk_r2, then training; still
     # before any profiler session
     imit = {"evaluate": _imitation_eval(torch, ops, train_trpo)}
-    imit["train"] = _train(torch, ops, B_MAIN, timed_iters=1, recipe=True)
+    imit["train"] = _train(torch, ops, B_MAIN, recipe=True)
     launches["apgd_solve"] += (imit["evaluate"]["launches"]["apgd_solve"]
                                + imit["train"]["launches"]["apgd_solve"])
     _train_cli(64, recipe=True)
@@ -2428,8 +2487,7 @@ def main() -> int:
             "step_device_ms": step_ms[layout_of[name]][1],
             "step_bound_ms": step_bound * 1e3,
             "ptxas": ptxas})
-    w64, w139 = wide[3 * WIDE[0][0] + WIDE[0][1]], wide[3 * WIDE[1][0]
-                                                        + WIDE[1][1]]
+    w64 = wide["ne=64 bfloat16"]
     kernels.append({
         "name": "apgd_solve_wide", "route": "cuda",
         "source": "deepmimic_mujoco_torch/ops/csrc/apgd_wide.cu",
@@ -2437,16 +2495,15 @@ def main() -> int:
         # route, _apgd_scan
         "replaces": "deepmimic_mujoco_tpu/ops/apgd.py:181",
         "launches": wide_launches,
-        "max_abs_err": max(w64["max_abs_err"], w139["max_abs_err"]),
-        **{k: w64["bfloat16"][k] for k in ("ms", "plain_ms", "bound_ms",
-                                           "bound_by")},
+        "max_abs_err": max(r["max_abs_err"] for r in wide.values()),
+        **{k: w64[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None, "shape": "B 4096, ne 64 (16/16 caps), bf16 A, "
                                      "15 iterations",
-        "device_ms": w64["bfloat16"]["device_ms"],
-        "registers": ptxas["wide/bf16"].get("registers"),
-        "spill_bytes": ptxas["wide/bf16"].get("spill_bytes"),
-        "smem_bytes": w64["bfloat16"]["smem_bytes"],
-        "ne64": w64, "ne139": w139})
+        "device_ms": w64["device_ms"],
+        "registers": ptxas["wide/bf16/kt4"].get("registers"),
+        "spill_bytes": ptxas["wide/bf16/kt4"].get("spill_bytes"),
+        "smem_bytes": w64["plan"]["smem"],
+        "shapes": wide, "ptxas": {k: ptxas[k] for k in wide_inst}})
     kernels[0]["train"] = {str(n): r for n, r in train.items()}
     kernels[0]["train_segment_card_vs_cpu"] = seg_diff
     kernels[0]["imitation"] = imit
@@ -2493,5 +2550,94 @@ def dp_witness() -> int:
     return 0
 
 
+def wide_vs(old_src: str) -> int:
+    """``python3 chip_smoke.py --wide-vs OLD.cu``: the wide kernel of this
+    checkout against another version of ``apgd_wide.cu`` with the same C
+    entry point (``apgd_wide_launch``), built here with the same flags: at
+    each shape of ``_wide_shapes`` and at ne 192, both against the plain
+    version, then their device times (a CUDA graph of 20 launches,
+    replayed) and times from Python (CUDA events) in turns, old, new, new,
+    old, on the same inputs; one JSON line before the last."""
+    import ctypes
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    from deepmimic_mujoco_torch.ops import _build
+    from deepmimic_mujoco_torch.ops import apgd as ops
+    from deepmimic_mujoco_torch.ops import timing
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    ops.load_kernels(("apgd_wide",))
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    lib_path = os.path.join(_build.BUILD_DIR, "libapgd_wide_other.so")
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib_path,
+                    old_src], check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(lib_path)
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.apgd_wide_launch.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, ptr, i64,
+                                     i32, i32, i32, ptr]
+    lib.apgd_wide_launch.restype = ctypes.c_int
+
+    def old_solve(a, b, mu, f0, *, iterations, nc, nl):
+        out = torch.empty_like(b)
+        err = lib.apgd_wide_launch(
+            a.data_ptr(), a.dtype is torch.bfloat16, b.data_ptr(),
+            mu.data_ptr(), f0.data_ptr(), out.data_ptr(),
+            ops._momentum_table(iterations, a).data_ptr(), b.shape[0],
+            b.shape[1], nc, iterations,
+            torch._C._cuda_getCurrentRawStream(a.get_device()))
+        if err != 0:
+            raise RuntimeError(f"{old_src}: cudaError {err}")
+        return out
+
+    solves = {"old": old_solve, "new": ops.apgd_solve_wide}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    rec = {}
+    # and MAX_NE_WIDE, where f32 A is kept as f32 and split per iteration
+    largest = [("ne=192", 50, 42, dt, 15)
+               for dt in (torch.float32, torch.bfloat16)]
+    for label, nc, nl, a_dtype, iters in _wide_shapes(torch) + largest:
+        es = 2 if a_dtype is torch.bfloat16 else 4
+        a, b, mu, f0 = _problem(torch, B_MAIN, a_dtype, gen, nc, nl)
+        kw = dict(iterations=iters, nc=nc, nl=nl)
+        ref = ops._apgd_scan(a, b, mu, f0, **kw)
+        err = {k: float((fn(a, b, mu, f0, **kw) - ref).abs().max())
+               for k, fn in solves.items()}
+        dev = {"old": [], "new": []}
+        ms = {"old": [], "new": []}
+        for who in ("old", "new", "new", "old"):
+            fn = solves[who]
+            dev[who].append(timing.graph_ms(
+                lambda: fn(a, b, mu, f0, **kw), calls=20, replays=2))
+            ms[who].append(timing.eager_ms(lambda: fn(a, b, mu, f0, **kw),
+                                           50))
+        bound_s, bound_by = _bound(B_MAIN, iters, nc, nl, es)
+        key = f"{label} {str(a_dtype)[6:]}"
+        rec[key] = {"iterations": iters, "max_abs_err": err,
+                    "device_ms": dev, "ms": ms, "bound_ms": bound_s * 1e3,
+                    "bound_by": bound_by}
+        print(f"[wide-vs] B={B_MAIN} {key} iters={iters}: device ms old "
+              f"{dev['old'][0]:.4f} / {dev['old'][1]:.4f}, new "
+              f"{dev['new'][0]:.4f} / {dev['new'][1]:.4f}; from Python old "
+              f"{ms['old'][0]:.4f} / {ms['old'][1]:.4f}, new "
+              f"{ms['new'][0]:.4f} / {ms['new'][1]:.4f}; bound "
+              f"{bound_s * 1e3:.4f} ({bound_by}); max_abs_err old "
+              f"{err['old']:.3e}, new {err['new']:.3e} (atol {ATOL})")
+        if not max(err.values()) <= ATOL:
+            raise AssertionError(f"{key}: {err}")
+    print(json.dumps({"wide_vs": rec}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(dp_witness() if sys.argv[1:] == ["--dp-witness"] else main())
+    if sys.argv[1:] == ["--dp-witness"]:
+        sys.exit(dp_witness())
+    if sys.argv[1:2] == ["--wide-vs"] and len(sys.argv) == 3:
+        sys.exit(wide_vs(sys.argv[2]))
+    sys.exit(main())

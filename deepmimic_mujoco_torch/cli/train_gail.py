@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """GAIL training CLI (port of ``deepmimic_mujoco_tpu/cli/train_gail.py``,
-with its flags and defaults, and ``--device``): the expert ``.npz``,
-``--traj-limitation``, the discriminator's width and entropy coefficient,
-``g_step`` / ``d_step``, behaviour-cloning pretraining (``--pretrained``,
-``--bc-max-iters``) and the env and policy configuration of
-``train_trpo``.  Each iteration logs ``EpLenMean``, ``EpRewMean`` (the
+with its flags and defaults, ``--platform`` among them, and ``--device``):
+the expert ``.npz``, ``--traj-limitation``, the discriminator's width and
+entropy coefficient, ``g_step`` / ``d_step``, behaviour-cloning pretraining
+(``--pretrained``, ``--bc-max-iters``) and the env and policy configuration
+of ``train_trpo``.  Each iteration logs ``EpLenMean``, ``EpRewMean`` (the
 discriminator's returns), ``EpTrueRewMean`` (the env's), ``DLoss``,
 ``GenAcc``, ``ExpertAcc``, ``TimestepsSoFar`` and ``TimeElapsed``; the
 monitor records the TRUE returns.  ``gail_state.npz`` (the JAX layout) is
@@ -40,14 +40,16 @@ from deepmimic_mujoco_torch.io_utils import checkpoint
 from deepmimic_mujoco_torch.models.policy import MlpPolicy
 from deepmimic_mujoco_torch.physics.humanoid import build_humanoid
 from deepmimic_mujoco_torch.utils import logger
-from deepmimic_mujoco_torch.utils.device import resolve_device
+from deepmimic_mujoco_torch.utils.device import PLATFORMS, resolve_device
 from deepmimic_mujoco_torch.utils.monitor import Monitor
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
-    p.add_argument("--env-id", default="DPEnvV3", choices=["DPEnvV3"])
+    p.add_argument("--env-id", default="DPEnvV3",
+                   help="names the log and checkpoint directory; the env is "
+                        "DPEnvV3 whatever the name")
     p.add_argument("--motion", default="walk")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--expert-path", required=True)
@@ -89,15 +91,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="comma list, e.g. 1024,512")
     p.add_argument("--activation", default="tanh", choices=["tanh", "relu"])
     p.add_argument("--save-per-iter", type=int, default=100)
+    p.add_argument("--platform", default=None, choices=sorted(PLATFORMS),
+                   help="the JAX CLI's flag: cpu, or gpu for the card")
     p.add_argument("--device", default=None,
-                   help="torch device (default cuda; pass cpu for the CPU)")
+                   help="torch device (default cuda; pass cpu for the CPU); "
+                        "takes precedence over --platform")
     return p
 
 
 def main(argv=None):
     """Trains; returns the final ``GAILState``."""
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
+    device = resolve_device(args.device or PLATFORMS.get(args.platform))
     env = DPEnvV3(
         clip=args.motion, model=build_humanoid(device=device),
         reward_mode=args.reward_mode, control_mode=args.control_mode,

@@ -40,9 +40,7 @@ from deepmimic_mujoco_torch.envs.deepmimic_surface import DeepMimicSurfaceEnv
 from deepmimic_mujoco_torch.envs.dp_env_v3 import DPEnvV3
 from deepmimic_mujoco_torch.io_utils import checkpoint
 from deepmimic_mujoco_torch.utils import logger
-from deepmimic_mujoco_torch.utils.device import resolve_device
-
-_PLATFORMS = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
+from deepmimic_mujoco_torch.utils.device import PLATFORMS, resolve_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -68,7 +66,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log-dir", default="log_tmp")
     p.add_argument("--checkpoint-dir", default="checkpoint_tmp")
     p.add_argument("--resume", default=None)
-    p.add_argument("--platform", default=None, choices=sorted(_PLATFORMS),
+    p.add_argument("--platform", default=None, choices=sorted(PLATFORMS),
                    help="the JAX CLI's flag: cpu, or gpu for the card")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; pass cpu for the CPU)")
@@ -78,7 +76,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     """Train; returns the final params."""
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device or _PLATFORMS.get(args.platform))
+    device = resolve_device(args.device or PLATFORMS.get(args.platform))
     spec = None
     if args.agent_spec:
         with open(args.agent_spec) as f:

@@ -41,7 +41,8 @@ Examples:
   python -m deepmimic_mujoco_torch.cli.train_trpo --task train --algo ppo \\
       --num-envs 4096 --timesteps-per-batch 64 --num-iters 100
 
-Without ``--device cpu`` they run on the CUDA card.
+Without ``--device cpu`` (or the JAX CLI's ``--platform cpu``) they run on
+the CUDA card.
 """
 
 from __future__ import annotations
@@ -66,7 +67,7 @@ from deepmimic_mujoco_torch.physics.humanoid import (
     build_humanoid,
     mocap_hinge_range,
 )
-from deepmimic_mujoco_torch.utils.device import resolve_device
+from deepmimic_mujoco_torch.utils.device import PLATFORMS, resolve_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -153,8 +154,11 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["blocks", "lanes"],
                    help="layout of the batched APGD kernel on CUDA: blocks = "
                         "(B, ne, ne), lanes = (ne, ne, B)")
+    p.add_argument("--platform", default=None, choices=sorted(PLATFORMS),
+                   help="the JAX CLI's flag: cpu, or gpu for the card")
     p.add_argument("--device", default=None,
-                   help="torch device (default cuda; pass cpu for the CPU)")
+                   help="torch device (default cuda; pass cpu for the CPU); "
+                        "takes precedence over --platform")
     return p
 
 
@@ -207,7 +211,7 @@ def main(argv=None):
         raise NotImplementedError(
             f"--dynamics {args.dynamics} (the host-MuJoCo A/B backend) is not "
             "ported (ROADMAP.md, queue A, item 'Parity modes and tools')")
-    device = resolve_device(args.device)
+    device = resolve_device(args.device or PLATFORMS.get(args.platform))
     model = build_humanoid(apgd_layout=args.apgd_layout, device=device)
     if args.warm_iterations >= 0:
         model = dataclasses.replace(model,

@@ -43,7 +43,7 @@ import torch
 from deepmimic_mujoco_torch.ops import _build
 
 MAX_NE = 32  # the rows map to the 32 slots of two 16-row mma tiles
-MAX_NE_WIDE = 192  # apgd_wide.cu: one thread per row, A in shared memory
+MAX_NE_WIDE = 192  # apgd_wide.cu: 12 tiles of 16 rows
 
 
 def _group_perm(nc: int, nl: int) -> tuple[np.ndarray, np.ndarray]:
@@ -149,8 +149,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.apgd_wide_launch.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, ptr,
                                          i64, i32, i32, i32, ptr]
         lib.apgd_wide_launch.restype = ctypes.c_int
-        lib.apgd_wide_smem.argtypes = [i32, i32]
-        lib.apgd_wide_smem.restype = ctypes.c_int
+        lib.apgd_wide_plan.argtypes = [i32, i32, i32, i64, ptr]
+        lib.apgd_wide_plan.restype = ctypes.c_int
         lib.apgd_wide_max_ne.argtypes = []
         lib.apgd_wide_max_ne.restype = ctypes.c_int
         if lib.apgd_wide_max_ne() != MAX_NE_WIDE:
@@ -323,9 +323,22 @@ def apgd_solve_wide(a, b, mu, f0, *, iterations: int, nc: int, nl: int):
     return out
 
 
-def wide_smem_bytes(ne: int, bf16: bool) -> int:
-    """Dynamic shared memory of one block of the wide kernel."""
-    return _lib("apgd_wide").apgd_wide_smem(ne, int(bf16))
+WIDE_PLAN_KEYS = ("tiles", "row_tiles_per_warp", "warps_per_env",
+                  "envs_per_block", "threads", "smem", "blocks_per_sm",
+                  "grid")
+
+
+def wide_launch_plan(ne: int, nc: int, bf16: bool, batch: int) -> dict:
+    """The wide kernel's launch configuration for a solve of ``batch``
+    systems of ``ne`` rows: its instantiation (16-row tiles), row tiles per
+    warp, warps per env, envs and threads per block, dynamic shared memory
+    bytes, blocks resident per SM and the persistent grid."""
+    out = (ctypes.c_longlong * len(WIDE_PLAN_KEYS))()
+    err = _lib("apgd_wide").apgd_wide_plan(ne, nc, int(bf16), batch, out)
+    if err != 0:
+        raise RuntimeError(f"apgd_wide occupancy query failed: cudaError "
+                           f"{err}")
+    return dict(zip(WIDE_PLAN_KEYS, out))
 
 
 apgd_solve.launches = 0

@@ -4,6 +4,9 @@ from __future__ import annotations
 
 import torch
 
+# the JAX CLIs' --platform values → the port's device
+PLATFORMS = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
+
 
 def resolve_device(device: torch.device | str | None = None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller names

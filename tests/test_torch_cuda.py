@@ -24,6 +24,7 @@ from deepmimic_mujoco_torch.models.policy import MlpPolicy
 from deepmimic_mujoco_torch.ops import apgd as ops
 from deepmimic_mujoco_torch.ops import timing
 from deepmimic_mujoco_torch.physics.humanoid import build_humanoid
+from tests.torch_wide_plan import plan as wide_plan
 
 pytestmark = pytest.mark.cuda
 
@@ -148,11 +149,22 @@ def test_main_path_on_the_card_matches_the_cpu(cuda):
     (37, 11, 0),     # ne = 33, the smallest system the dispatch sends here
     (4096, 16, 16),  # ne = 64: build_humanoid(contact_cap=16, limit_cap=16)
     (300, 37, 28),   # ne = 139: the uncapped humanoid
-], ids=["ne33", "ne64", "ne139"])
+    (1, 13, 8),      # ne = 47, one env: a block of four env slots
+    (37, 16, 0),     # ne = 48, the edge of the third tile; no limits
+    (4097, 5, 34),   # ne = 49: a fourth tile; B no multiple of any block
+    (37, 0, 96),     # ne = 96, the edge of the sixth tile; no contacts
+    (5, 20, 37),     # ne = 97
+    (37, 40, 24),    # ne = 144, the largest of the 9-tile classes
+    (37, 41, 22),    # ne = 145, the smallest of the 12-tile classes
+    (3, 63, 2),      # ne = 191
+    (4097, 50, 42),  # ne = 192, MAX_NE_WIDE
+], ids=["ne33", "ne64", "ne139", "ne47-B1", "ne48", "ne49-B4097", "ne96",
+        "ne97", "ne144", "ne145", "ne191", "ne192-B4097"])
 def test_wide_kernel_matches_plain(cuda, B, nc, nl, a_dtype):
     """``apgd_solve_wide`` against ``_apgd_scan`` (the XLA route's port) on
-    the same systems, atol 1e-4 (TestAPGD's); the dispatch sends ne > 32
-    to it and to no other kernel."""
+    the same systems, atol 1e-4 (TestAPGD's), at and beside the edges of
+    the kernel's 16-row tiles and classes; the dispatch sends ne > 32 to
+    it and to no other kernel."""
     a, b, mu, f0 = _problem(B, nc, nl, a_dtype, seed=B + nc)
     for iters in (0, 8, 15, 60):
         kw = dict(iterations=iters, nc=nc, nl=nl)
@@ -172,6 +184,67 @@ def test_wide_kernel_matches_plain(cuda, B, nc, nl, a_dtype):
                                               counts[2] + 2)
 
 
+def _branch_problem(B, nc, nl, a_dtype, seed):
+    """Systems whose warm starts take every branch of the projection: inside
+    the cone, on its surface, above it, below it (the dual cone), and zero
+    friction; A and b as in ``_problem``."""
+    a, b, mu, f0 = _problem(B, nc, nl, a_dtype, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    kind = (torch.arange(nc, device="cuda")[None, :]
+            + torch.arange(B, device="cuda")[:, None]) % 5
+    fn = 0.5 + 1.5 * torch.rand((B, nc), generator=gen, device="cuda")
+    ang = 2 * math.pi * torch.rand((B, nc), generator=gen, device="cuda")
+    mu = torch.where(kind == 4, 0.0, mu)
+    ratio = torch.tensor([0.5, 1.0, 3.0, 0.5, 2.0], device="cuda")[kind]
+    fn = torch.where(kind == 3, -fn, fn)
+    t = ratio * torch.clamp(mu, min=0.5) * fn.abs()
+    f0 = f0.clone()
+    f0[:, 0:3 * nc:3] = fn
+    f0[:, 1:3 * nc:3] = t * torch.cos(ang)
+    f0[:, 2:3 * nc:3] = t * torch.sin(ang)
+    return a, b, mu.contiguous(), f0
+
+
+@pytest.mark.parametrize("a_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("nc,nl", [(16, 16), (37, 28)],
+                         ids=["ne64", "ne139"])
+def test_wide_kernel_projection_branches_match_plain(cuda, nc, nl, a_dtype):
+    """Warm starts in every branch of the cone (inside, on the surface,
+    above, below, μ = 0): the projection alone (0 iterations) and the solve
+    (8, 60) against the plain version."""
+    a, b, mu, f0 = _branch_problem(64, nc, nl, a_dtype, seed=11)
+    fn = f0[:, 0:3 * nc:3]
+    ft = torch.hypot(f0[:, 1:3 * nc:3], f0[:, 2:3 * nc:3])
+    assert bool((ft < mu * fn).any() and (mu * ft <= -fn).any()
+                and (ft > mu * fn).any() and (mu == 0).any())
+    for iters in (0, 8, 60):
+        kw = dict(iterations=iters, nc=nc, nl=nl)
+        torch.testing.assert_close(ops.apgd_solve_wide(a, b, mu, f0, **kw),
+                                   ops._apgd_scan(a, b, mu, f0, **kw),
+                                   atol=ATOL, rtol=0)
+
+
+def test_wide_launch_plan_is_the_designed_one(cuda):
+    """The compiled plan (``apgd_wide_plan``) against its mirror
+    ``tests/torch_wide_plan.py``, which the CPU tests hold to the design,
+    for every ne and both types of A; each class is resident on an SM."""
+    for ne in range(1, ops.MAX_NE_WIDE + 1):
+        for nc in sorted({0, ne // 3}):
+            for bf16 in (True, False):
+                got = ops.wide_launch_plan(ne, nc, bf16, 4097)
+                want = wide_plan(ne, nc, bf16, 4097)
+                assert (got["tiles"], got["row_tiles_per_warp"],
+                        got["warps_per_env"], got["envs_per_block"],
+                        got["threads"], got["smem"]) == (
+                    want["kt"], want["row_tiles"], want["warps"],
+                    want["envs"], want["threads"], want["smem"]), (ne, nc)
+                sms = torch.cuda.get_device_properties(0).multi_processor_count
+                assert got["blocks_per_sm"] >= 1
+                assert got["grid"] == min(want["groups"],
+                                          got["blocks_per_sm"] * sms)
+
+
 def test_wide_kernel_refuses_systems_above_its_maximum(cuda):
     big = _problem(4, 66, 0, torch.bfloat16, seed=5)   # ne = 198
     n0 = ops.apgd_solve_wide.launches
@@ -180,24 +253,45 @@ def test_wide_kernel_refuses_systems_above_its_maximum(cuda):
     assert ops.apgd_solve_wide.launches == n0
 
 
-@pytest.mark.parametrize("caps", [16, 1 << 30], ids=["caps16", "uncapped"])
-def test_larger_caps_on_the_card_match_the_cpu(cuda, caps):
-    """16 envs × 20 steps with 16/16 caps (ne = 64) and uncapped (ne = 139):
-    the card (the wide kernel, 4 launches per step, nothing else) against
+WIDE_MODELS = {
+    "caps16": dict(contact_cap=16, limit_cap=16),
+    "uncapped": dict(contact_cap=1 << 30, limit_cap=1 << 30),
+    # README's exact-cold configuration: f32 A, cold 50-iteration stage 1
+    "exact-cold": dict(warm_iterations=0, solver_dtype="f32",
+                       contact_cap=16, limit_cap=16),
+}
+
+
+@pytest.mark.parametrize("caps", list(WIDE_MODELS))
+def test_larger_caps_on_the_card_match_the_cpu(cuda, caps, monkeypatch):
+    """16 envs × 20 steps with 16/16 caps (ne = 64), uncapped (ne = 139)
+    and the exact-cold configuration: the card (the wide kernel, 4 launches
+    per step, nothing else; the plain ``_apgd_scan`` never called) against
     the CPU (plain version), episode lengths equal and qpos within 1e-3 as
     on the main path."""
     idx = torch.arange(16) * 2 % 39
     out = {}
     for dev in ("cuda", "cpu"):
-        env = DPEnvV3(model=build_humanoid(contact_cap=caps, limit_cap=caps,
-                                           device=dev))
+        env = DPEnvV3(model=build_humanoid(**WIDE_MODELS[caps], device=dev))
         policy = MlpPolicy(ob_dim=56, ac_dim=28)
         params = checkpoint.load_trpo_params(CKPT, policy, dev)
-        n0 = (ops.apgd_solve.launches, ops.apgd_solve_wide.launches)
-        out[dev] = runner.rollout(env, policy, params, env.reset_at(idx), 20)
-        if dev == "cuda":
-            assert (ops.apgd_solve.launches - n0[0],
-                    ops.apgd_solve_wide.launches - n0[1]) == (0, 4 * 20)
+        state = env.reset_at(idx)
+        if dev == "cpu":
+            out[dev] = runner.rollout(env, policy, params, state, 20)
+            continue
+        scans = []
+        plain = ops._apgd_scan
+        monkeypatch.setattr(
+            ops, "_apgd_scan",
+            lambda *a, **kw: scans.append(1) or plain(*a, **kw))
+        n0 = (ops.apgd_solve.launches, ops.apgd_solve_lanes.launches,
+              ops.apgd_solve_wide.launches)
+        out[dev] = runner.rollout(env, policy, params, state, 20)
+        assert (ops.apgd_solve.launches - n0[0],
+                ops.apgd_solve_lanes.launches - n0[1],
+                ops.apgd_solve_wide.launches - n0[2]) == (0, 0, 4 * 20)
+        assert not scans
+        monkeypatch.setattr(ops, "_apgd_scan", plain)
     torch.testing.assert_close(out["cuda"].ep_len.cpu(), out["cpu"].ep_len)
     torch.testing.assert_close(out["cuda"].state.qpos.cpu(),
                                out["cpu"].state.qpos, atol=1e-3, rtol=0)

@@ -28,6 +28,7 @@ from deepmimic_mujoco_torch.cli import train_trpo
 from deepmimic_mujoco_torch.envs.dp_env_v3 import DPEnvV3
 from deepmimic_mujoco_torch.io_utils import checkpoint
 from deepmimic_mujoco_torch.models.policy import MlpPolicy
+from deepmimic_mujoco_torch.utils.device import PLATFORMS
 
 torch.set_num_threads(1)
 
@@ -292,6 +293,23 @@ def test_cli_evaluate_on_cpu():
                            "--load-model-path", CKPT])
     assert 0 < res.avg_len <= 4 and res.avg_ret == res.avg_len
     assert res.rollout.state.qpos.shape == (3, 35)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--platform", "cpu"],
+    ["--platform", "gpu", "--device", "cpu"],   # --device takes precedence
+], ids=["platform-cpu", "device-over-platform"])
+def test_cli_platform_flag_picks_the_device(flags):
+    """The JAX CLI's ``--platform`` (README's A/B command passes ``cpu``)
+    maps to a device as in ``cli.train_ppo``; ``--device`` overrides it."""
+    res = train_trpo.main(["--task", "evaluate", *flags, "--eval-episodes",
+                           "2", "--eval-horizon", "3", "--load-model-path",
+                           CKPT])
+    assert res.rollout.state.qpos.device.type == "cpu"
+    args = train_trpo.build_parser().parse_args(["--platform", "gpu"])
+    assert PLATFORMS[args.platform] == "cuda" and args.device is None
+    with pytest.raises(SystemExit):  # the JAX CLI's "tpu" is not a choice
+        train_trpo.build_parser().parse_args(["--platform", "tpu"])
 
 
 @pytest.mark.parametrize("case", ["train", "sample", "ppo"])

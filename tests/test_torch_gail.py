@@ -503,6 +503,29 @@ def test_cli_trains_with_bc_and_writes_a_checkpoint_jax_loads(tmp_path,
     assert int(js.expert_ptr) == int(state.expert_ptr) == 2 * 12
 
 
+@pytest.mark.parametrize("flags", [
+    ["--platform", "cpu"],
+    ["--platform", "gpu", "--device", "cpu"],   # --device takes precedence
+], ids=["platform-cpu", "device-over-platform"])
+def test_cli_env_id_names_the_run_and_platform_picks_the_device(tmp_path,
+                                                                flags):
+    """``--env-id`` is a free string that names only the log and checkpoint
+    directory (the JAX CLI's ``{env_id}/gail-{motion}-{seed}``; the env
+    stays DPEnvV3), and ``--platform`` maps to a device as in
+    ``cli.train_ppo``."""
+    state = train_gail.main([
+        *R4_FLAGS, "--max-episode-steps", "4", *flags, "--env-id", "Foo",
+        "--num-envs", "2", "--timesteps-per-batch", "4", "--g-step", "1",
+        "--num-iters", "2", "--log-dir", str(tmp_path / "logs"),
+        "--checkpoint-dir", str(tmp_path / "ckpt")])
+    assert state.trpo.params["pol"][0]["w"].device.type == "cpu"
+    assert (tmp_path / "logs" / "Foo" / "gail-walk-0" / "progress.csv"
+            ).read_text().count("\n") == 3
+    assert (tmp_path / "ckpt" / "Foo" / "gail-walk-0" /
+            "gail_state.npz").exists()
+    assert not (tmp_path / "logs" / "DPEnvV3").exists()
+
+
 def test_cli_refuses_an_expert_of_another_obs_dim(tmp_path):
     """The expert's 68-D obs against the default env's 56-D."""
     with pytest.raises(ValueError, match="expert obs dim 68 != env obs dim"):
