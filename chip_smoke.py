@@ -47,17 +47,18 @@ Phases, each printing its lines before the last:
    ``_apgd_scan`` not called), held against the same rollouts on the
    CPU;
 4. main path — ``cli.train_trpo --task evaluate`` of the bundled walk
-   checkpoint at 4096 and 768 envs × 200 steps, once per kernel layout,
+   checkpoint at 4096 envs × 200 steps and 768 × 50, once per kernel layout,
    with the launch counts set to 0 just before each run and read just after,
    before any profiler session; then [train], also before any profiler
-   session: ``TRPO.iteration`` at 768 and 4096 envs × 64 steps, g_step 1
-   (bench.py's configuration; one warm-up and one timed iteration each,
-   the counts set to 0 just before the timed one): env-steps/s, the time
+   session: ``TRPO.iteration`` at 768 envs × 16 steps (one warm-up, one
+   timed: the process's first training) and at 4096 × 64, g_step 1
+   (bench.py's configuration; one iteration), the counts set to 0 just
+   before the timed one: env-steps/s, the time
    of the rollout, the policy update and the vf epochs, APGD launches per
    env step (4), meankl ≤ 1.5·max_kl and finite stats; one
    ``_segment_update`` on the card against the CPU from the same segment;
-   and ``python -m deepmimic_mujoco_torch.cli.train_trpo --task train
-   --num-iters 2`` at 768 envs, whose checkpoint must read back; then
+   and ``cli.train_trpo --task train --num-iters 1`` in-process at 64
+   envs, whose checkpoint must read back; then
    [imitation], the README's imitation recipe (``imitation_dm`` reward,
    ``pd_residual`` control, 2 substeps, 300-step episodes, fall-contact
    termination, the 68-D obs) with the bundled ``walk_r2`` policy (relu
@@ -66,7 +67,7 @@ Phases, each printing its lines before the last:
    the cap, reward per step within 0.03 of the port's CPU figure, 8
    ``apgd_solve`` launches per control step, no wide launch, no call of
    the plain ``_apgd_scan``), ``TRPO.iteration`` with the recipe's flags
-   at 4096 envs x 32 steps (one warm-up, one timed) and the training CLI
+   at 4096 envs x 32 steps (one iteration) and the training CLI in-process
    at 64 envs for one iteration, whose checkpoint must read back; then
    [multi], the multi-clip path, also before any profiler session: 16
    ``DPEnvV3Multi`` envs over five clips x 20 steps on the card against the
@@ -90,9 +91,9 @@ Phases, each printing its lines before the last:
    rollout, policy update, vf epochs and d-step seconds, DLoss, GenAcc,
    ExpertAcc, EpTrueRewMean, meankl ≤ 1.5·max_kl, 8 launches per control
    step), one d-step and segment update on the card against the CPU, and
-   ``python -m deepmimic_mujoco_torch.cli.train_gail`` with the run's flags
-   at 64 envs, 200 BC steps and 2 iterations (the BC loss goes down, the
-   checkpoint reads back); then [ppo]: ``cli.train_trpo --algo ppo --task
+   ``cli.train_gail`` in-process with the run's flags at 64 envs, 200 BC
+   steps and 1 iteration (the BC loss goes down, the checkpoint reads
+   back); then [ppo]: ``cli.train_trpo --algo ppo --task
    train`` in-process at 4096 envs x 64 steps for 2 iterations (env-steps/s,
    rollout and update seconds, finite losses, 4 launches per env step) and
    one ``PPO.iteration`` on the card against the CPU with the CPU run's
@@ -110,15 +111,27 @@ Phases, each printing its lines before the last:
    ``train_iteration`` at 16 envs x chunks of 16 steps on the CPU and on the
    card with the CPU's draws replayed (the params leaf by leaf,
    :func:`dp_param_diff`), ``cli.train_ppo --surface v3`` at 512 envs x 2
-   iterations (4 launches per env step) and ``cli.get_action``; all before
-   any profiler session; then profiler windows
+   iterations (4 launches per env step) and ``cli.get_action``; then
+   [envs], the other envs and what wraps them: ``TRPO.iteration`` of
+   ``DPEnvV2`` (dt 0.002, 6 substeps, the CLI's tanh 100x2 policy) at 4096
+   envs x 16 steps, g_step 1 (one iteration; env-steps/s, phase
+   seconds, exactly 24 ``apgd_solve`` launches per control step, no call
+   of the plain solve, meankl ≤ 1.5·max_kl), 16 envs x 10 control steps
+   of ``DPEnvV1``, ``DPEnvV2`` and ``HumanoidTestEnv`` on the card against
+   the CPU (:func:`env_card_vs_cpu`), ``VecNormalize`` over a 4096-env
+   ``VectorEnv`` of ``HumanoidTestEnv`` for 16 steps
+   (:func:`vec_normalize_run`), 30 updates of the ``DeepMimicEnv`` facade
+   on the card against the CPU (:func:`facade_card_vs_cpu`) and, in-process,
+   ``cli.train_trpo --env-id DPEnvV1``, ``cli.torque_test``,
+   ``cli.play_mocap`` and ``gym_shim.make("DPEnvV2")``
+   (:func:`envs_clis`); all before any profiler session; then profiler
+   windows
    of one env step's
    four solves through ``apgd()`` (blocks: four kernels and nothing else),
    and ``torch.profiler`` windows of 5 env steps at 4096 envs and of 3
    recipe steps at 4096 envs (step time, device busy share, kernel
    launches per step, the solve's device time and launches per step, top
-   kernels); the 4096-env blocks evaluation again, after those profiler
-   sessions; then 16-env, 20-step rollouts on the card, of the walk
+   kernels); then 16-env, 20-step rollouts on the card, of the walk
    evaluation and of the recipe, held against the same rollouts on the CPU
    (plain versions: qpos and rewards within 1e-3, equal done flags);
 5. one JSON line with every kernel's numbers (with the registers, spills
@@ -145,6 +158,7 @@ NC, NL = 8, 8
 NE = 3 * NC + NL
 B_MAIN = 4096
 HORIZON = 200
+HORIZON_768 = 50             # the 768-env evaluations: 200, cut
 ATOL = 1e-4          # TestAPGD's tolerance: the sums run in another order
 ROLLOUT_ATOL = 1e-3  # 20 physics steps, card (kernel) vs CPU (plain)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM
@@ -159,6 +173,7 @@ EXACT_COLD = dict(warm_iterations=0, solver_dtype="f32", contact_cap=16,
                   limit_cap=16)
 EXACT_COLD_ITERS = 50
 TRAIN_HORIZON = 64           # bench.py's TRPO configuration: g_step 1
+TRAIN_HORIZON_768 = 16       # [train] at 768 envs: 64, cut
 MAX_KL = 0.01                # TRPOConfig's default
 
 # the imitation recipe (README "Quick start") and its bundled policy
@@ -249,6 +264,30 @@ DP_TRAIN_ITERS = 3           # the run's 700, cut
 # (tests/test_torch_dp_policy.py::test_r5_evaluation_matches_jax, which
 # holds it against JAX's on the same episodes: 0.3732, 38.05)
 CPU_DP = (0.3732, 38.05)
+
+# [envs]: the other envs, their batch wrappers, the DeepMimic facade and
+# the CLIs that reach them
+ENV_CVC_ENVS, ENV_CVC_STEPS = 16, 10
+# seeds of the card-vs-CPU actions, 0.1·N(0, 1); HumanoidTestEnv's is chosen
+# so that no root height comes within 1e-3 of 0.8 (closest: 3.1e-3)
+ENV_ACTION_SEED = {"DPEnvV1": 1, "DPEnvV2": 1, "HumanoidTestEnv": 3}
+# apgd_solve launches per control step: 6 substeps x 4 stage solves; 5 x 4
+# and the cold solve of the obs' engine.forward
+ENV_LAUNCHES = {"DPEnvV1": 24, "DPEnvV2": 24, "HumanoidTestEnv": 21}
+ENV_DONE_AT = {"DPEnvV1": (0.7, 2.0), "DPEnvV2": (0.7, 2.0),
+               "HumanoidTestEnv": (0.8, 2.0)}
+V2_TRAIN_HORIZON = 16        # at bench.py's 4096 envs; its 64, cut
+VECNORM_ENVS, VECNORM_STEPS = 4096, 16
+FACADE_UPDATES = 30
+# the facade's record_state is held to 1e-3 over the first 12 updates: from
+# then on the open-loop walk loses its balance and any two f32 runs part
+# (JAX and the port, both on the CPU: 1.0e-3 at update 14, 5.2e-2 at 27)
+FACADE_STATE_UPDATES = 12
+# the port's CPU figures (both equal to JAX's on the CPU; tests/
+# test_torch_envs_v1_v2.py holds the printed lines): cli.torque_test
+# --steps 100 and cli.play_mocap --motion spinkick --through-dynamics
+CPU_TORQUE_TEST = 0.0265
+CPU_PLAY_MOCAP = 0.2112
 
 
 def dp_frames(n: int = DP_ENVS):
@@ -499,33 +538,43 @@ def _timed(fn, acc: dict, key: str):
     return run
 
 
-def _train(torch, ops, n_envs: int, timed_iters: int = 1,
-           recipe: bool = False) -> dict:
-    """[train] ``TRPO.iteration`` at ``n_envs`` envs x 64 steps, g_step 1
-    (bench.py's configuration), from random params: one warm-up iteration,
-    then ``timed_iters`` timed ones, with the launch counts set to 0 just
-    before them and read just after.  Phase times are wall time between
-    synchronizations around the rollout, the policy update (gradient, CG,
-    line search) and the vf epochs.  ``recipe``: [imitation], the same on
-    the imitation recipe's env, policy and flags at 32 steps (8 APGD
-    launches per control step: 2 substeps of 4 stage solves)."""
+def _train(torch, ops, n_envs: int, kind: str = "walk",
+           horizon: int | None = None, warm_up: bool = False) -> dict:
+    """[train] ``TRPO.iteration`` at ``n_envs`` envs x ``horizon`` steps
+    (64 by default: bench.py's configuration), g_step 1, from random
+    params: one timed iteration (after a warm-up one with ``warm_up``: the
+    first training run of the process), with the launch counts set to 0
+    just before it and read just after; the plain ``_apgd_scan`` must not
+    be called.  Phase times are wall time between synchronizations
+    around the rollout, the policy update (gradient, CG, line search) and
+    the vf epochs.  ``kind`` "recipe": [imitation], the same on the
+    imitation recipe's env, policy and flags at 32 steps (8 APGD launches
+    per control step: 2 substeps of 4 stage solves); "v2": [envs],
+    ``DPEnvV2`` (dt 0.002, 6 substeps: 24 launches per control step) with
+    the CLI's default 100x2 tanh policy at 16 steps."""
     from collections import deque
 
     from deepmimic_mujoco_torch.algos.trpo import TRPO, TRPOConfig
+    from deepmimic_mujoco_torch.envs.dp_env_v2 import DPEnvV2
     from deepmimic_mujoco_torch.envs.dp_env_v3 import DPEnvV3
     from deepmimic_mujoco_torch.models.policy import MlpPolicy
     from deepmimic_mujoco_torch.physics.humanoid import build_humanoid
 
-    model = build_humanoid(device="cuda")
-    if recipe:
+    if kind == "recipe":
         tag, horizon, per_step = "[imitation]", IMIT_TRAIN_HORIZON, 8
-        learner = TRPO(DPEnvV3(model=model, **RECIPE_ENV),
+        learner = TRPO(DPEnvV3(model=build_humanoid(device="cuda"),
+                               **RECIPE_ENV),
                        MlpPolicy(**RECIPE_POLICY),
                        TRPOConfig(horizon=horizon, num_envs=n_envs, g_step=1,
                                   gamma=0.95, lam=0.95, reset_mode="rsi"))
+    elif kind == "v2":
+        tag, horizon, per_step = "[envs] DPEnvV2", V2_TRAIN_HORIZON, 24
+        learner = TRPO(DPEnvV2(device="cuda"), MlpPolicy(ob_dim=67, ac_dim=28),
+                       TRPOConfig(horizon=horizon, num_envs=n_envs, g_step=1))
     else:
-        tag, horizon, per_step = "[train]", TRAIN_HORIZON, 4
-        learner = TRPO(DPEnvV3(model=model), MlpPolicy(ob_dim=56, ac_dim=28),
+        tag, horizon, per_step = "[train]", horizon or TRAIN_HORIZON, 4
+        learner = TRPO(DPEnvV3(model=build_humanoid(device="cuda")),
+                       MlpPolicy(ob_dim=56, ac_dim=28),
                        TRPOConfig(horizon=horizon, num_envs=n_envs,
                                   g_step=1))
     phase = {"rollout": 0.0, "policy update": 0.0, "vf epochs": 0.0}
@@ -542,38 +591,45 @@ def _train(torch, ops, n_envs: int, timed_iters: int = 1,
         lens.extend(int(x) for x in ended[ended > 0].cpu())
         return state, stats
 
-    state, _ = iterate(state)  # warm-up
-    for k in phase:
-        phase[k] = 0.0
+    if warm_up:
+        state, _ = iterate(state)
+        for k in phase:
+            phase[k] = 0.0
+    plain, scans = ops._apgd_scan, []
+    ops._apgd_scan = lambda *a, **kw: scans.append(1) or plain(*a, **kw)
     _zero_counts(ops)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(timed_iters):
+    try:
         state, stats = iterate(state)
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+    finally:
+        ops._apgd_scan = plain
     dt = time.perf_counter() - t0
     n = _counts(ops)
-    steps = timed_iters * horizon
     rec = {k: float(getattr(stats, k)) for k in (
         "meankl", "surrgain", "ev_tdlam_before", "optimgain", "entropy")}
     rec["EpLenMean"] = sum(lens) / len(lens) if lens else float("nan")
-    rec.update(env_steps_per_s=n_envs * steps / dt,
-               iteration_s=dt / timed_iters,
-               phase_s={k: v / timed_iters for k, v in phase.items()},
-               apgd_launches_per_env_step=n["apgd_solve"] / steps,
+    rec.update(env_steps_per_s=n_envs * horizon / dt, iteration_s=dt,
+               phase_s=dict(phase),
+               apgd_launches_per_env_step=n["apgd_solve"] / horizon,
                launches=n)
     env = learner.env
-    rec["env"] = {k: getattr(env, k) for k in (
+    rec["env"] = {k: getattr(env, k, None) for k in (
         "reward_mode", "control_mode", "n_substeps", "pd_target_interp",
         "obs_mode", "include_phase", "termination", "max_episode_steps",
         "observation_size")}
+    rec["env"]["dt"] = env.model.dt
+    rec["apgd_scan_calls"] = len(scans)
     print(f"{tag} TRPO.iteration {n_envs} envs x {horizon} steps, "
-          f"g_step 1, {timed_iters} timed after 1 warm-up: "
+          f"g_step 1, " + ("1 timed after 1 warm-up" if warm_up else
+                           "1 iteration") + ": "
           f"{rec['env_steps_per_s']:.1f} env-steps/s, "
           f"{rec['iteration_s']:.3f} s per iteration ("
           + ", ".join(f"{k} {v:.3f} s" for k, v in rec["phase_s"].items())
           + f"); APGD launches per env step "
-          f"{rec['apgd_launches_per_env_step']:.2f} ({n}); meankl "
+          f"{rec['apgd_launches_per_env_step']:.2f} ({n}), _apgd_scan "
+          f"called {len(scans)} times; meankl "
           f"{rec['meankl']:.5f}, surrgain {rec['surrgain']:.5f}, "
           f"ev_tdlam_before {rec['ev_tdlam_before']:.4f}, EpLenMean "
           f"{rec['EpLenMean']:.2f}")
@@ -584,11 +640,12 @@ def _train(torch, ops, n_envs: int, timed_iters: int = 1,
                  or (k == "EpLenMean" and lens))
     if not (finite and rec["meankl"] <= 1.5 * MAX_KL):
         raise AssertionError(f"{tag} {n_envs} envs: stats {rec}")
-    if n != {"apgd_solve": per_step * steps, "apgd_solve_lanes": 0,
-             "apgd_solve_wide": 0}:
+    if n != {"apgd_solve": per_step * horizon, "apgd_solve_lanes": 0,
+             "apgd_solve_wide": 0} or scans:
         raise AssertionError(f"{tag} {n_envs} envs: APGD launches {n}, "
                              f"expected {per_step} per env step "
-                             f"({per_step * steps})")
+                             f"({per_step * horizon}); _apgd_scan "
+                             f"{len(scans)}")
     return rec
 
 
@@ -666,41 +723,35 @@ def _segment_card_vs_cpu(torch) -> dict:
     return d
 
 
-def _train_cli(n_envs: int = 768, recipe: bool = False) -> None:
-    """[train] ``python -m deepmimic_mujoco_torch.cli.train_trpo --task train
-    --num-iters 2`` at ``n_envs`` envs (64 steps, g_step 1) into a temporary
-    directory; the checkpoint it writes reads back through
-    ``load_trpo_params``.  ``recipe``: [imitation], one iteration of the
-    imitation recipe's flags at 32 steps."""
+def _train_cli(recipe: bool = False) -> None:
+    """[train] ``cli.train_trpo --task train --num-iters 1`` in-process at
+    64 envs (64 steps, g_step 1) into a temporary directory; the checkpoint
+    it writes reads back through ``load_trpo_params``.  ``recipe``:
+    [imitation], the imitation recipe's flags at 32 steps."""
     import tempfile
 
     import torch
 
+    from deepmimic_mujoco_torch.cli import train_trpo
     from deepmimic_mujoco_torch.io_utils import checkpoint
     from deepmimic_mujoco_torch.models.policy import MlpPolicy
 
     if recipe:
-        tag, iters, horizon = "[imitation]", 1, IMIT_TRAIN_HORIZON
+        tag, horizon = "[imitation]", IMIT_TRAIN_HORIZON
         flags, policy = RECIPE_FLAGS + RECIPE_TRAIN_FLAGS, MlpPolicy(
             **RECIPE_POLICY)
     else:
-        tag, iters, horizon = "[train]", 2, TRAIN_HORIZON
+        tag, horizon = "[train]", TRAIN_HORIZON
         flags, policy = [], MlpPolicy(56, 28)
-    root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as tmp:
-        cmd = [sys.executable, "-m", "deepmimic_mujoco_torch.cli.train_trpo",
-               "--task", "train", "--num-iters", str(iters), "--num-envs",
-               str(n_envs), "--timesteps-per-batch", str(horizon),
-               "--g-step", "1", "--seed", str(SEED), *flags,
-               "--log-dir", os.path.join(tmp, "logs"),
-               "--checkpoint-dir", os.path.join(tmp, "ckpt")]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
-                              timeout=400, check=False)
+        _quiet(train_trpo.main, [
+            "--task", "train", "--num-iters", "1", "--num-envs", "64",
+            "--timesteps-per-batch", str(horizon), "--g-step", "1",
+            "--seed", str(SEED), *flags, "--log-dir",
+            os.path.join(tmp, "logs"), "--checkpoint-dir",
+            os.path.join(tmp, "ckpt")])
         dt = time.perf_counter() - t0
-        if proc.returncode != 0:
-            print(proc.stdout[-3000:], proc.stderr[-3000:], file=sys.stderr)
-            raise AssertionError(f"the training CLI exited {proc.returncode}")
         run = os.path.join("DPEnvV3", "trpo-walk-0")
         with open(os.path.join(tmp, "logs", run, "progress.csv")) as fh:
             rows = fh.read().strip().splitlines()
@@ -710,13 +761,12 @@ def _train_cli(n_envs: int = 768, recipe: bool = False) -> None:
                      [params["logstd"]] + [layer["w"] for layer in
                                            params["pol"] + params["vf"]])
         last = dict(zip(rows[0].split(","), rows[-1].split(",")))
-        print(f"{tag} CLI --task train --num-iters {iters} at {n_envs} envs "
-              f"x {horizon} steps: exit 0 in {dt:.1f} s (process start and "
-              f"imports included), {len(rows) - 1} progress rows, last "
-              f"meankl {last['meankl']} EpLenMean {last['EpLenMean']}; its "
-              f"checkpoint reads back through load_trpo_params, finite "
-              f"{finite}")
-        if len(rows) != iters + 1 or not finite:
+        print(f"{tag} CLI --task train --num-iters 1 at 64 envs x {horizon} "
+              f"steps, in-process: {dt:.1f} s, {len(rows) - 1} progress "
+              f"rows, last meankl {last['meankl']} EpLenMean "
+              f"{last['EpLenMean']}; its checkpoint reads back through "
+              f"load_trpo_params, finite {finite}")
+        if len(rows) != 2 or not finite:
             raise AssertionError(f"{tag} the CLI's log or checkpoint is off")
 
 
@@ -1199,9 +1249,9 @@ def _gail_eval(torch, ops) -> dict:
 def _gail_train(torch, ops) -> dict:
     """[gail] ``GAIL.iteration`` resumed from gail_r4's whole state (64
     envs, its discriminator and d-Adam, the expert cursor), horizon 32 of
-    the run's 1024, g_step 3, d_step 1: one warm-up and one timed
-    iteration, the launch counts set to 0 just before the timed one.
-    Phase times are wall time between synchronizations."""
+    the run's 1024, g_step 3, d_step 1: one timed iteration, the launch
+    counts set to 0 just before it.  Phase times are wall time between
+    synchronizations."""
     from deepmimic_mujoco_torch.algos.trpo import Draws
     from deepmimic_mujoco_torch.io_utils import checkpoint
 
@@ -1224,9 +1274,6 @@ def _gail_train(torch, ops) -> dict:
         trues.extend(stats.true_ep_rets[ended].tolist())
         return state, stats
 
-    state, _ = iterate(state)  # warm-up
-    for k in phase:
-        phase[k] = 0.0
     _zero_counts(ops)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1254,7 +1301,7 @@ def _gail_train(torch, ops) -> dict:
                          "surrgain", "EpTrueRewMean"))
     print(f"[gail] GAIL.iteration resumed from gail_r4: 64 envs x "
           f"{GAIL_TRAIN_HORIZON} steps (horizon cut from 1024) x g_step 3, "
-          f"d_step 1, 1 timed after 1 warm-up: "
+          f"d_step 1, 1 iteration: "
           f"{rec['env_steps_per_s']:.1f} env-steps/s, {dt:.3f} s ("
           + ", ".join(f"{k} {v:.3f} s" for k, v in phase.items())
           + f"); DLoss {rec['DLoss']:.4f}, GenAcc {rec['GenAcc']:.4f}, "
@@ -1354,29 +1401,23 @@ def _gail_card_vs_cpu(torch) -> dict:
 
 
 def _gail_cli(torch, tmp: str) -> dict:
-    """[gail] ``python -m deepmimic_mujoco_torch.cli.train_gail`` with the
-    r4 run's flags at 64 envs x 32 steps, BC pretraining of 200 steps, 2
-    iterations, in ``tmp``: the BC loss goes down, the tabular keys are
-    logged, and ``gail_state.npz`` reads back through
-    ``load_gail_state``."""
+    """[gail] ``cli.train_gail`` in-process with the r4 run's flags at 64
+    envs x 32 steps, BC pretraining of 200 steps, 1 iteration, in ``tmp``:
+    the BC loss goes down, the tabular keys are logged, and
+    ``gail_state.npz`` reads back through ``load_gail_state``."""
     from deepmimic_mujoco_torch.algos.trpo import Draws
+    from deepmimic_mujoco_torch.cli import train_gail
     from deepmimic_mujoco_torch.io_utils import checkpoint
 
-    cmd = [sys.executable, "-m", "deepmimic_mujoco_torch.cli.train_gail",
-           *GAIL_FLAGS, "--num-envs", "64", "--timesteps-per-batch",
-           str(GAIL_TRAIN_HORIZON), "--num-iters", "2", "--pretrained",
-           "--bc-max-iters", "200", "--seed", str(SEED),
-           "--log-dir", os.path.join(tmp, "logs"),
-           "--checkpoint-dir", os.path.join(tmp, "ckpt")]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                          timeout=400, check=False)
+    text, _ = _quiet(train_gail.main, [
+        *GAIL_FLAGS, "--num-envs", "64", "--timesteps-per-batch",
+        str(GAIL_TRAIN_HORIZON), "--num-iters", "1", "--pretrained",
+        "--bc-max-iters", "200", "--seed", str(SEED),
+        "--log-dir", os.path.join(tmp, "logs"),
+        "--checkpoint-dir", os.path.join(tmp, "ckpt")])
     dt = time.perf_counter() - t0
-    if proc.returncode != 0:
-        print(proc.stdout[-3000:], proc.stderr[-3000:], file=sys.stderr)
-        raise AssertionError(f"the GAIL CLI exited {proc.returncode}")
-    bc = [float(m) for m in re.findall(r"BC iter \d+: loss (\S+)",
-                                       proc.stdout)]
+    bc = [float(m) for m in re.findall(r"BC iter \d+: loss (\S+)", text)]
     run = os.path.join("DPEnvV3", "gail-walk-0")
     with open(os.path.join(tmp, "logs", run, "progress.csv")) as fh:
         rows = fh.read().strip().splitlines()
@@ -1389,16 +1430,16 @@ def _gail_cli(torch, tmp: str) -> dict:
            "progress": last, "expert_ptr": int(state.expert_ptr)}
     print(f"[gail] CLI train_gail, the r4 flags at 64 envs x "
           f"{GAIL_TRAIN_HORIZON} steps, --pretrained --bc-max-iters 200, "
-          f"--num-iters 2: exit 0 in {dt:.1f} s (process start and imports "
-          f"included); BC loss {bc[0]:.4f} -> {bc[-1]:.4f}; last row "
+          f"--num-iters 1, in-process: {dt:.1f} s; BC loss {bc[0]:.4f} -> "
+          f"{bc[-1]:.4f}; last row "
           + ", ".join(f"{k} {last[k]}" for k in sorted(last))
           + f"; gail_state.npz reads back through load_gail_state, expert "
           f"cursor {rec['expert_ptr']}")
     keys = {"EpLenMean", "EpRewMean", "EpTrueRewMean", "DLoss", "GenAcc",
             "ExpertAcc", "TimestepsSoFar", "TimeElapsed"}
     if not (len(bc) == 2 and bc[-1] < bc[0] and set(last) == keys
-            and len(rows) == 3
-            and rec["expert_ptr"] == 2 * 64 * GAIL_TRAIN_HORIZON):
+            and len(rows) == 2
+            and rec["expert_ptr"] == 64 * GAIL_TRAIN_HORIZON):
         raise AssertionError(f"[gail] the CLI's run is off: {rec}")
     return rec
 
@@ -2041,29 +2082,396 @@ def _dp_v3(torch, ops, train_ppo, tmp: str) -> dict:
     return rec
 
 
-def _dp_get_action() -> dict:
-    """[dp-ppo] ``cli.get_action --arg-file assets/args/run_humanoid3d_walk_
-    args.txt`` on the card: it prints the shape (36,)."""
+def _quiet(fn, argv) -> tuple:
+    """(stdout text, return value) of ``fn(argv)``."""
     import contextlib
     import io
 
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(argv)
+    return buf.getvalue(), out
+
+
+def _dp_get_action() -> dict:
+    """[dp-ppo] ``cli.get_action --arg-file assets/args/run_humanoid3d_walk_
+    args.txt`` on the card: it prints the shape (36,)."""
     from deepmimic_mujoco_torch.cli import get_action
 
-    buf = io.StringIO()
     cwd = os.getcwd()
     os.chdir(ROOT)
     try:
-        with contextlib.redirect_stdout(buf):
-            ac = get_action.main(["--arg-file", os.path.join(
-                "assets", "args", "run_humanoid3d_walk_args.txt")])
+        text, ac = _quiet(get_action.main, ["--arg-file", os.path.join(
+            "assets", "args", "run_humanoid3d_walk_args.txt")])
     finally:
         os.chdir(cwd)
-    text = buf.getvalue()
     print("[dp-ppo] get_action on the card: " + " / ".join(
         text.strip().splitlines()))
     if "shape: (36,)" not in text or ac.shape != (36,):
         raise AssertionError(f"[dp-ppo] get_action printed {text!r}")
     return {"shape": list(ac.shape)}
+
+
+def _other_env(name: str, dev: str):
+    from deepmimic_mujoco_torch.envs import (
+        DPEnvV1,
+        DPEnvV2,
+        HumanoidTestEnv,
+    )
+
+    return {"DPEnvV1": DPEnvV1, "DPEnvV2": DPEnvV2,
+            "HumanoidTestEnv": HumanoidTestEnv}[name](device=dev)
+
+
+def _obs_blocks(env) -> dict:
+    """HumanoidTestEnv's obs blocks: name → slice."""
+    nb, out, a = env.model.nbody, {}, 0
+    for name, size in (("qpos[2:]", 33), ("qvel", 34), ("cinert", 10 * nb),
+                       ("cvel", 6 * nb), ("qfrc_actuator", 34),
+                       ("cfrc_ext", 6 * nb)):
+        out[name] = slice(a, a + size)
+        a += size
+    return out
+
+
+def env_card_vs_cpu(torch, ops, name: str, n_envs: int = ENV_CVC_ENVS,
+                    steps: int = ENV_CVC_STEPS) -> dict:
+    """[envs] ``n_envs`` envs of ``name`` (DPEnvV1, DPEnvV2 or
+    HumanoidTestEnv) x ``steps`` control steps on the card and on the CPU,
+    from the same starts (clip frames; HumanoidTestEnv: noise starts drawn
+    on the CPU) and the same actions (0.1·N(0, 1) from a CPU generator).
+    Bounds: qpos within 1e-3, rewards within 1e-3 of max(1, |r|), equal
+    done flags at every step; HumanoidTestEnv's obs within 1e-3 of
+    max(1, |x|) per block.  On the card ``ENV_LAUNCHES[name]`` apgd_solve
+    launches per control step, no other APGD launch and no call of the
+    plain ``_apgd_scan``.  Reports the CPU root height's closest approach
+    to the done thresholds."""
+    envs = {d: _other_env(name, d) for d in ("cuda", "cpu")}
+    if name == "HumanoidTestEnv":
+        start = envs["cpu"].reset(torch.Generator().manual_seed(SEED), n_envs)
+        states = {d: e.reset_to(start.qpos.to(d), start.qvel.to(d))
+                  for d, e in envs.items()}
+    else:
+        frames = torch.arange(n_envs) * 5 % envs["cpu"].clip_len
+        states = {d: e.reset_at(frames) for d, e in envs.items()}
+    acts = 0.1 * torch.randn(
+        (steps, n_envs, 28),
+        generator=torch.Generator().manual_seed(ENV_ACTION_SEED[name]))
+    traj = {}
+    plain, scans = ops._apgd_scan, []
+    ops._apgd_scan = lambda *a, **kw: scans.append(1) or plain(*a, **kw)
+    try:
+        _zero_counts(ops)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, traj["cuda"] = states["cuda"], []
+        for a in acts:
+            st = envs["cuda"].step(st, a.to("cuda"))
+            traj["cuda"].append(st)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = _counts(ops)
+    finally:
+        ops._apgd_scan = plain
+    st, traj["cpu"] = states["cpu"], []
+    for a in acts:
+        st = envs["cpu"].step(st, a)
+        traj["cpu"].append(st)
+    lo, hi = ENV_DONE_AT[name]
+    rec = {"qpos": 0.0, "reward": 0.0, "done_equal": True, "obs": {},
+           "closest_to_threshold": float("inf")}
+    blocks = _obs_blocks(envs["cpu"]) if name == "HumanoidTestEnv" else {}
+    for c, p in zip(traj["cuda"], traj["cpu"]):
+        rec["qpos"] = max(rec["qpos"], float((c.qpos.cpu() - p.qpos)
+                                             .abs().max()))
+        rec["reward"] = max(rec["reward"], _rel(c.reward.cpu(), p.reward))
+        rec["done_equal"] &= bool(torch.equal(c.done.cpu(), p.done))
+        for k, sl in blocks.items():
+            rec["obs"][k] = max(rec["obs"].get(k, 0.0),
+                                _rel(c.obs[:, sl].cpu(), p.obs[:, sl]))
+        z = p.qpos[:, 2]
+        rec["closest_to_threshold"] = min(
+            rec["closest_to_threshold"],
+            float(torch.minimum((z - lo).abs(), (z - hi).abs()).min()))
+    rec.update(launches=n, apgd_scan_calls=len(scans),
+               apgd_launches_per_control_step=n["apgd_solve"] / steps,
+               done_at_end=int(traj["cpu"][-1].done.sum()),
+               card_s_per_control_step=dt / steps)
+    obs_txt = (", obs per block " + ", ".join(
+        f"{k} {v:.3e}" for k, v in rec["obs"].items()) + " (bound 1e-3 of "
+        "max(1, |x|))") if blocks else ""
+    print(f"[envs] {name}, {n_envs} envs x {steps} control steps, card vs "
+          f"CPU from the same starts and actions: qpos max_abs_diff "
+          f"{rec['qpos']:.3e} (atol 1e-3), reward {rec['reward']:.3e} of "
+          f"max(1, |r|) (bound 1e-3){obs_txt}; done flags equal at every "
+          f"step {rec['done_equal']} ({rec['done_at_end']} done at the end; "
+          f"root height's closest approach to {lo}/{hi}: "
+          f"{rec['closest_to_threshold']:.4f}); on the card "
+          f"{rec['card_s_per_control_step']:.3f} s per control step, "
+          f"apgd_solve launches per control step "
+          f"{rec['apgd_launches_per_control_step']:.2f} ({n}), _apgd_scan "
+          f"called {len(scans)} times")
+    if not (rec["qpos"] <= 1e-3 and rec["reward"] <= 1e-3
+            and rec["done_equal"] and all(v <= 1e-3
+                                          for v in rec["obs"].values())):
+        raise AssertionError(f"[envs] {name}: the card disagrees with the "
+                             f"CPU: {rec}")
+    if n != {"apgd_solve": ENV_LAUNCHES[name] * steps,
+             "apgd_solve_lanes": 0, "apgd_solve_wide": 0} or scans:
+        raise AssertionError(f"[envs] {name}: APGD launches {n}, expected "
+                             f"{ENV_LAUNCHES[name]} per control step; "
+                             f"_apgd_scan {len(scans)}")
+    return rec
+
+
+def vec_normalize_run(torch, ops, n_envs: int = VECNORM_ENVS,
+                      steps: int = VECNORM_STEPS) -> dict:
+    """[envs] ``VecNormalize(VectorEnv(HumanoidTestEnv(), n_envs,
+    autoreset="init"))`` on the card, ``steps`` steps of 0.1·N(0, 1)
+    actions from a seeded generator: the normalized obs finite and within
+    ±10 at every step; 21 apgd_solve launches per step plus 1 at each step
+    where some env finished (one batch of fresh starts), 1 at the reset."""
+    from deepmimic_mujoco_torch.envs.humanoid_test_env import HumanoidTestEnv
+    from deepmimic_mujoco_torch.envs.vec_normalize import VecNormalize
+    from deepmimic_mujoco_torch.envs.vector import VectorEnv
+
+    norm = VecNormalize(VectorEnv(HumanoidTestEnv(device="cuda"), n_envs,
+                                  autoreset="init"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    _zero_counts(ops)
+    state = norm.reset(gen)
+    at_reset = ops.apgd_solve.launches
+    worst = norm.observe(state).abs().max()
+    finite = torch.isfinite(norm.observe(state)).all()
+    per_step, fresh = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        n0 = ops.apgd_solve.launches
+        a = 0.1 * torch.randn((n_envs, 28), generator=gen, device="cuda")
+        state, obs, rew, done = norm.step(state, a, gen)
+        per_step.append(ops.apgd_solve.launches - n0)
+        fresh.append(bool(done.any()))
+        worst = torch.maximum(worst, obs.abs().max())
+        finite = finite & torch.isfinite(obs).all() & torch.isfinite(rew).all()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = _counts(ops)
+    rec = {"env_steps_per_s": n_envs * steps / dt, "seconds": dt,
+           "launches_at_reset": at_reset, "launches_per_step": per_step,
+           "steps_with_fresh_starts": sum(fresh), "max_abs_obs": float(worst),
+           "finite": bool(finite), "ob_count": float(state.ob_rms.count),
+           "ret_std": float(state.ret_rms.std), "launches": n}
+    print(f"[envs] VecNormalize(VectorEnv(HumanoidTestEnv(), {n_envs}, "
+          f"autoreset='init')), {steps} steps: {rec['env_steps_per_s']:.1f} "
+          f"env-steps/s ({dt:.2f} s); normalized obs finite {rec['finite']}, "
+          f"max |obs| {rec['max_abs_obs']:.3f} (clip 10); apgd_solve "
+          f"launches per step {per_step} ({sum(fresh)} steps with fresh "
+          f"starts, 1 launch each), {at_reset} at the reset; return std "
+          f"{rec['ret_std']:.4f}")
+    want = [ENV_LAUNCHES["HumanoidTestEnv"] + int(f) for f in fresh]
+    if not (rec["finite"] and rec["max_abs_obs"] <= 10.0 and per_step == want
+            and at_reset == 1 and n["apgd_solve_wide"] == 0):
+        raise AssertionError(f"[envs] VecNormalize run off: {rec}")
+    return rec
+
+
+def facade_card_vs_cpu(torch, ops, updates: int = FACADE_UPDATES) -> dict:
+    """[envs] ``DeepMimicEnv(reward_mode="imitation")`` on the card and on
+    the CPU, from walk's frame 0, ``updates`` calls of ``set_action`` (the
+    PD targets of the next frame, ``targets_to_action``) and
+    ``update(1/30)``: after each, ``calc_reward`` within 1e-3 and equal
+    ``check_terminate``, and ``record_state`` within 1e-3 over the first
+    ``FACADE_STATE_UPDATES`` (after them it is reported: the open-loop
+    character loses its balance and f32 runs part, see the constant); on
+    the card 8 apgd_solve launches per update (2 substeps)."""
+    from deepmimic_mujoco_torch.envs.deepmimic_api import DeepMimicEnv
+    from deepmimic_mujoco_torch.envs.deepmimic_surface import (
+        targets_to_action,
+    )
+
+    envs = {d: DeepMimicEnv(reward_mode="imitation", device=d)
+            for d in ("cuda", "cpu")}
+    clip = envs["cpu"].mocap
+    for e in envs.values():
+        e.qpos = torch.as_tensor(clip.qpos_cont[0], dtype=torch.float32,
+                                 device=e.device)
+        e.qvel = torch.as_tensor(clip.qvel_fd[0], dtype=torch.float32,
+                                 device=e.device)
+    rec = {"record_state": [], "calc_reward": 0.0, "terminate_equal": True,
+           "launches_per_update": [], "card_s": 0.0, "rewards": [],
+           "terminate": []}
+    for k in range(updates):
+        act = targets_to_action(clip.qpos_cont[(k + 1) % len(clip), 7:])
+        out = {}
+        for d, e in envs.items():
+            n0 = ops.apgd_solve.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e.set_action(0, act)
+            e.update(1.0 / 30.0)
+            out[d] = (e.record_state(), e.calc_reward(), e.check_terminate())
+            if d == "cuda":
+                rec["card_s"] += time.perf_counter() - t0
+                rec["launches_per_update"].append(
+                    ops.apgd_solve.launches - n0)
+        rec["record_state"].append(float(
+            abs(out["cuda"][0] - out["cpu"][0]).max()))
+        rec["calc_reward"] = max(rec["calc_reward"],
+                                 abs(out["cuda"][1] - out["cpu"][1]))
+        rec["terminate_equal"] &= out["cuda"][2] == out["cpu"][2]
+        rec["rewards"].append(out["cpu"][1])
+        rec["terminate"].append(out["cpu"][2])
+    held = min(updates, FACADE_STATE_UPDATES)
+    state_held = max(rec["record_state"][:held])
+    print(f"[envs] DeepMimicEnv(reward_mode='imitation'), {updates} x "
+          f"set_action + update(1/30) from walk's frame 0 under the clip's "
+          f"PD targets, card vs CPU: record_state max_abs_diff "
+          f"{state_held:.3e} over the first {held} updates (atol 1e-3), "
+          f"{max(rec['record_state']):.3e} over all {updates} (per update: "
+          + ", ".join(f"{d:.1e}" for d in rec["record_state"])
+          + f"), calc_reward "
+          f"{rec['calc_reward']:.3e} (atol 1e-3), check_terminate equal "
+          f"{rec['terminate_equal']} (CPU: {sum(rec['terminate'])} of "
+          f"{updates} FAIL); reward on the CPU first/last "
+          f"{rec['rewards'][0]:.4f}/{rec['rewards'][-1]:.4f}; on the card "
+          f"{1e3 * rec['card_s'] / updates:.1f} ms per update, apgd_solve "
+          f"launches per update {sorted(set(rec['launches_per_update']))}")
+    if not (state_held <= 1e-3 and rec["calc_reward"] <= 1e-3
+            and rec["terminate_equal"]
+            and rec["launches_per_update"] == [8] * updates):
+        raise AssertionError(f"[envs] the facade on the card disagrees: "
+                             f"{rec}")
+    return rec
+
+
+def envs_clis(torch, ops, tmp: str) -> dict:
+    """[envs] the CLIs in-process on the card: ``cli.train_trpo --env-id
+    DPEnvV1 --task train`` at 256 envs x 16 steps, g_step 1, one iteration
+    (its checkpoint reads back; 24 launches per control step);
+    ``cli.torque_test --steps 100`` (mean tracking reward within 0.03 of
+    the port's CPU figure; 4 launches per step); ``cli.play_mocap --motion
+    spinkick --through-dynamics --cycles 1`` (the clip's frames as one
+    batch: 4 launches; reward within 0.03 of the CPU's); and
+    ``gym_shim.make("DPEnvV2", device="cuda")``, reset and 5 steps (24
+    launches per step; without gymnasium ``GymEnv`` derives from
+    ``object``)."""
+    import numpy as np
+
+    from deepmimic_mujoco_torch.cli import play_mocap, torque_test, train_trpo
+    from deepmimic_mujoco_torch.envs import gym_shim
+    from deepmimic_mujoco_torch.io_utils import checkpoint
+    from deepmimic_mujoco_torch.models.policy import MlpPolicy
+
+    rec = {}
+    _zero_counts(ops)
+    t0 = time.perf_counter()
+    text, state = _quiet(train_trpo.main, [
+        "--env-id", "DPEnvV1", "--task", "train", "--num-envs", "256",
+        "--timesteps-per-batch", "16", "--g-step", "1", "--num-iters", "1",
+        "--seed", str(SEED), "--log-dir", os.path.join(tmp, "logs"),
+        "--checkpoint-dir", os.path.join(tmp, "ckpt")])
+    dt = time.perf_counter() - t0
+    n = _counts(ops)
+    run = os.path.join("DPEnvV1", "trpo-walk-0")
+    with open(os.path.join(tmp, "logs", run, "progress.csv")) as fh:
+        rows = fh.read().strip().splitlines()
+    last = dict(zip(rows[0].split(","), rows[-1].split(",")))
+    params = checkpoint.load_trpo_params(
+        os.path.join(tmp, "ckpt", run, "trpo_state.npz"),
+        MlpPolicy(ob_dim=67, ac_dim=28), "cuda")
+    same = all(bool(torch.equal(a["w"], b["w"])) for a, b in
+               zip(params["pol"], state.params["pol"]))
+    rec["train_trpo_v1"] = {"seconds": dt, "launches": n,
+                            "progress": last, "checkpoint_reads_back": same}
+    print(f"[envs] cli.train_trpo --env-id DPEnvV1 --task train, 256 envs x "
+          f"16 steps, g_step 1, 1 iteration, in-process: {dt:.1f} s; "
+          f"apgd_solve launches per control step {n['apgd_solve'] / 16:.2f} "
+          f"({n}); meankl {last['meankl']}, EpLenMean {last['EpLenMean']}; "
+          f"the checkpoint reads back {same}")
+    if not (same and len(rows) == 2 and n == {
+            "apgd_solve": 24 * 16, "apgd_solve_lanes": 0,
+            "apgd_solve_wide": 0}
+            and float(last["meankl"]) <= 1.5 * MAX_KL):
+        raise AssertionError(f"[envs] the V1 training CLI is off: {rec}")
+
+    _zero_counts(ops)
+    text, mean = _quiet(torque_test.main, ["--steps", "100"])
+    n = _counts(ops)
+    rec["torque_test"] = {"mean_reward": mean, "launches": n}
+    print("[envs] cli.torque_test --steps 100 on the card: "
+          + " / ".join(text.strip().splitlines())
+          + f" (the port on the CPU: {CPU_TORQUE_TEST}); apgd_solve "
+          f"launches {n['apgd_solve']}")
+    if not (abs(mean - CPU_TORQUE_TEST) <= 0.03
+            and n["apgd_solve"] == 4 * 100):
+        raise AssertionError(f"[envs] torque_test off: {rec}")
+
+    _zero_counts(ops)
+    text, track = _quiet(play_mocap.main, ["--motion", "spinkick",
+                                           "--through-dynamics",
+                                           "--cycles", "1"])
+    n = _counts(ops)
+    reward = float(re.findall(r"mean config reward (\S+)", text)[0])
+    rec["play_mocap"] = {"mean_reward": reward, "launches": n,
+                         "frames": int(track.shape[0])}
+    print("[envs] cli.play_mocap --motion spinkick --through-dynamics "
+          "--cycles 1 on the card: " + " / ".join(text.strip().splitlines())
+          + f" (the port on the CPU: {CPU_PLAY_MOCAP}); apgd_solve launches "
+          f"{n['apgd_solve']} (the {track.shape[0]} frames in one batch)")
+    if not (abs(reward - CPU_PLAY_MOCAP) <= 0.03 and n["apgd_solve"] == 4):
+        raise AssertionError(f"[envs] play_mocap off: {rec}")
+
+    _zero_counts(ops)
+    env = gym_shim.make("DPEnvV2", device="cuda")
+    obs, _ = env.reset(seed=SEED)
+    rews = []
+    for _ in range(5):
+        obs, r, done, trunc, info = env.step(np.zeros(28, np.float32))
+        rews.append(r)
+    n = _counts(ops)
+    rec["gym_shim"] = {"rewards": rews, "launches": n,
+                       "bases": [b.__name__ for b in type(env).__bases__],
+                       "mocap_idx": info["mocap_idx"]}
+    print(f"[envs] gym_shim.make('DPEnvV2', device='cuda'): GymEnv bases "
+          f"{rec['gym_shim']['bases']}, reset + 5 steps, obs {obs.shape} "
+          f"finite {bool(np.isfinite(obs).all())}, rewards "
+          + ", ".join(f"{r:.4f}" for r in rews)
+          + f", mocap_idx {info['mocap_idx']}; apgd_solve launches "
+          f"{n['apgd_solve']}")
+    if not (obs.shape == (67,) and np.isfinite(obs).all()
+            and info["mocap_idx"] == 5 and n["apgd_solve"] == 24 * 5):
+        raise AssertionError(f"[envs] the gym shim is off: {rec}")
+    return rec
+
+
+def envs_phase(torch, ops) -> dict:
+    """[envs]: TRPO on DPEnvV2 at 4096 envs x 16 steps, the card against
+    the CPU for DPEnvV1, DPEnvV2 and HumanoidTestEnv, VecNormalize over a
+    4096-env VectorEnv of HumanoidTestEnv, the DeepMimic facade card vs
+    CPU, and the CLIs.  Returns the records; ``launches`` is the phase's
+    apgd_solve launches on the card."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    rec = {"train_v2": _train(torch, ops, B_MAIN, kind="v2")}
+    launches = rec["train_v2"]["launches"]["apgd_solve"]
+    for name in ("DPEnvV1", "DPEnvV2", "HumanoidTestEnv"):
+        rec[name] = env_card_vs_cpu(torch, ops, name)
+        launches += rec[name]["launches"]["apgd_solve"]
+    rec["vec_normalize"] = vec_normalize_run(torch, ops)
+    rec["facade"] = facade_card_vs_cpu(torch, ops)
+    launches += (rec["vec_normalize"]["launches"]["apgd_solve"]
+                 + sum(rec["facade"]["launches_per_update"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        rec["clis"] = envs_clis(torch, ops, tmp)
+    launches += sum(r["launches"]["apgd_solve"]
+                    for r in rec["clis"].values())
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"[envs] the phase took {rec['seconds']:.1f} s; {launches} "
+          f"apgd_solve launches")
+    return rec
 
 
 def _profile(torch, runner, env, policy, params, state, steps: int,
@@ -2305,22 +2713,22 @@ def main() -> int:
 
     # 4. main path, before any profiler session: after the profiler has
     # traced the card, later kernel launches of the process can cost more
-    # host time (the rerun after the [profile] phase shows whether they do)
-    def evaluate(n_envs, layout, label=""):
+    # host time (PERF.md §7)
+    def evaluate(n_envs, layout, horizon=HORIZON):
         ops.apgd_solve.launches = 0
         ops.apgd_solve_lanes.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = train_trpo.main([
             "--task", "evaluate", "--load-model-path", CKPT,
-            "--eval-episodes", str(n_envs), "--eval-horizon", str(HORIZON),
+            "--eval-episodes", str(n_envs), "--eval-horizon", str(horizon),
             "--motion", "walk", "--apgd-layout", layout,
             "--device", "cuda", "--seed", str(SEED)])
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         n = {k: fn.launches for k, fn in (("blocks", ops.apgd_solve),
                                           ("lanes", ops.apgd_solve_lanes))}
-        want = {k: (4 * HORIZON if k == layout else 0) for k in n}
+        want = {k: (4 * horizon if k == layout else 0) for k in n}
         if n != want:
             raise AssertionError(f"APGD launches {n}, expected {want}")
         st = res.rollout.state
@@ -2329,21 +2737,24 @@ def main() -> int:
         if not (finite and res.avg_len > 0):
             raise AssertionError(f"main path: finite={finite} "
                                  f"avg_len={res.avg_len}")
-        print(f"[main] evaluate {n_envs} envs x {HORIZON} steps, "
-              f"layout={layout}{label}: avg_len {res.avg_len:.2f} avg_ret "
+        print(f"[main] evaluate {n_envs} envs x {horizon} steps, "
+              f"layout={layout}: avg_len {res.avg_len:.2f} avg_ret "
               f"{res.avg_ret:.2f}, {dt:.2f} s, "
-              f"{n_envs * HORIZON / dt:.1f} env-steps/s, launches {n}")
+              f"{n_envs * horizon / dt:.1f} env-steps/s, launches {n}")
         return n[layout]
 
     launches = {"apgd_solve": 0, "apgd_solve_lanes": 0}
-    for n_envs in (B_MAIN, 768):
+    for n_envs, horizon in ((B_MAIN, HORIZON), (768, HORIZON_768)):
         for layout in ("blocks", "lanes"):
-            launches[dispatch_of[layout]] += evaluate(n_envs, layout)
+            launches[dispatch_of[layout]] += evaluate(n_envs, layout,
+                                                      horizon)
 
     # training: TRPO.iteration at 768 and 4096 envs, one segment update on
     # the card against the CPU, and the training CLI; still before any
     # profiler session
-    train = {n: _train(torch, ops, n) for n in (768, B_MAIN)}
+    train = {768: _train(torch, ops, 768, horizon=TRAIN_HORIZON_768,
+                         warm_up=True),
+             B_MAIN: _train(torch, ops, B_MAIN)}
     launches["apgd_solve"] += sum(r["launches"]["apgd_solve"]
                                   for r in train.values())
     seg_diff = _segment_card_vs_cpu(torch)
@@ -2352,10 +2763,10 @@ def main() -> int:
     # the imitation recipe: evaluation of walk_r2, then training; still
     # before any profiler session
     imit = {"evaluate": _imitation_eval(torch, ops, train_trpo)}
-    imit["train"] = _train(torch, ops, B_MAIN, recipe=True)
+    imit["train"] = _train(torch, ops, B_MAIN, kind="recipe")
     launches["apgd_solve"] += (imit["evaluate"]["launches"]["apgd_solve"]
                                + imit["train"]["launches"]["apgd_solve"])
-    _train_cli(64, recipe=True)
+    _train_cli(recipe=True)
 
     # the multi-clip path: DPEnvV3Multi card vs CPU, the multi-skill
     # policy's evaluation, then the TRPO lanes (evaluation, training resumed
@@ -2408,6 +2819,12 @@ def main() -> int:
         dp[k]["launches"]["apgd_solve"] for k in ("evaluate", "train_cli",
                                                    "v3"))
 
+    # the other envs (DPEnvV1, DPEnvV2, HumanoidTestEnv), VecNormalize over a
+    # VectorEnv, the DeepMimic facade and their CLIs; before any profiler
+    # session
+    envs_rec = envs_phase(torch, ops)
+    launches["apgd_solve"] += envs_rec["launches"]
+
     # one env step's four solves through the dispatch: the wrappers' counts
     # give the launches; profiler windows show what ran on the device (a
     # window may miss a kernel's record, so the most any window saw is read)
@@ -2443,7 +2860,6 @@ def main() -> int:
         checkpoint.load_trpo_params(CKPT_R2, imit_policy, "cuda"),
         imit_env.reset_at(torch.arange(B_MAIN) % imit_env.clip_len), 3,
         "[imitation] [profile]")
-    evaluate(B_MAIN, "blocks", label=", again after the profiler sessions")
 
     # the card's rollout against the CPU's (plain versions), small input
     idx = torch.arange(16) * 2 % 39
@@ -2512,6 +2928,7 @@ def main() -> int:
     kernels[0]["gail"] = gail
     kernels[0]["ppo"] = ppo
     kernels[0]["dp_ppo"] = dp
+    kernels[0]["envs"] = envs_rec
     print(f"[done] {time.perf_counter() - t_start:.1f} s after the imports")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

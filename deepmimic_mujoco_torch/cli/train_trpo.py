@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
 """TRPO training, evaluation and sampling CLI (port of
 ``deepmimic_mujoco_tpu/cli/train_trpo.py`` with its TRPO flags and
-defaults) on single-clip ``DPEnvV3`` (every reward mode, torque, PD and
-PD-residual control, both obs modes and both termination rules) and, with
-``--motion a,b,...``, on the multi-skill ``DPEnvV3Multi`` (one policy over
-several clips; the JAX CLI's coercions and warnings: PD-residual control,
-an imitation reward, at least 2 substeps, 300-step episodes, the full obs
-and fall-contact termination unless given).  ``--joint-limits mocap``
+defaults) on ``DPEnvV1`` and ``DPEnvV2`` (``--env-id``: their own model,
+``build_humanoid(dt=0.002)``, 6 substeps per control step; the DPEnvV3-only
+flags are ignored, as in JAX; ``--warm-iterations``, ``--joint-limits
+mocap`` and a ``--motion`` list are refused), on single-clip ``DPEnvV3``
+(every reward mode, torque, PD and PD-residual control, both obs modes and
+both termination rules) and, with ``--motion a,b,...``, on the multi-skill
+``DPEnvV3Multi`` (one policy over several clips; the JAX CLI's coercions
+and warnings: PD-residual control, an imitation reward, at least 2
+substeps, 300-step episodes, the full obs and fall-contact termination
+unless given).  ``--joint-limits mocap``
 widens the hinge ranges to the bundled clips' poses; ``--warm-iterations``
 sets the model's warm-started solve budget; ``--clip-weights`` weights the
 clips' RSI draws.  ``--algo ppo`` trains the vectorized clipped-surrogate
 PPO (``algos/ppo.py``, the ``--ppo-*`` flags) and evaluates its
-checkpoints.  Not ported: ``--dynamics mujoco`` raises
+checkpoints.  Not ported: ``--dynamics mujoco`` on DPEnvV3 raises
 ``NotImplementedError`` naming ROADMAP.md.
 
 Examples:
@@ -37,6 +41,9 @@ Examples:
       --control-mode pd_residual --n-substeps 2 --max-episode-steps 300 \\
       --reset-mode rsi --gamma 0.95 --lam 0.95 --hidden-sizes 1024,512 \\
       --activation relu --fixed-logstd -3.0 --clip-weights 1,1,2
+  # DPEnvV2 (the pose-reward env at dt 0.002, 6 substeps)
+  python -m deepmimic_mujoco_torch.cli.train_trpo --task train \\
+      --env-id DPEnvV2 --num-envs 4096 --timesteps-per-batch 16
   # vectorized PPO on walk at bench.py's width
   python -m deepmimic_mujoco_torch.cli.train_trpo --task train --algo ppo \\
       --num-envs 4096 --timesteps-per-batch 64 --num-iters 100
@@ -59,6 +66,8 @@ from deepmimic_mujoco_torch.algos.ppo import PPO, PPOConfig
 from deepmimic_mujoco_torch.algos.runner import evaluate
 from deepmimic_mujoco_torch.algos.train_loop import train
 from deepmimic_mujoco_torch.algos.trpo import TRPO, TRPOConfig
+from deepmimic_mujoco_torch.envs.dp_env_v1 import DPEnvV1
+from deepmimic_mujoco_torch.envs.dp_env_v2 import DPEnvV2
 from deepmimic_mujoco_torch.envs.dp_env_v3 import DPEnvV3
 from deepmimic_mujoco_torch.envs.multi_clip import DPEnvV3Multi
 from deepmimic_mujoco_torch.io_utils import checkpoint
@@ -73,7 +82,8 @@ from deepmimic_mujoco_torch.utils.device import PLATFORMS, resolve_device
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
-    p.add_argument("--env-id", default="DPEnvV3", choices=["DPEnvV3"])
+    p.add_argument("--env-id", default="DPEnvV3",
+                   choices=["DPEnvV1", "DPEnvV2", "DPEnvV3"])
     p.add_argument("--motion", default="walk", help="mocap clip")
     p.add_argument("--reward-mode", default="alive",
                    choices=["alive", "mocap", "imitation", "imitation_dm"])
@@ -168,10 +178,39 @@ def task_name(args) -> str:
     return f"{args.env_id}/{args.algo}-{motion}-{args.seed}"
 
 
+def make_model(args, device):
+    """The physics of ``--env-id``: DPEnvV1/V2 run on their own model at dt
+    0.002 (JAX passes them no model), DPEnvV3 on the default one with the
+    model flags applied."""
+    if args.env_id != "DPEnvV3":
+        if args.warm_iterations >= 0 or args.joint_limits == "mocap":
+            raise ValueError("--warm-iterations and --joint-limits mocap "
+                             "require DPEnvV3")
+        if "," in args.motion:
+            raise ValueError("multi-clip requires DPEnvV3")
+        return build_humanoid(dt=0.002, apgd_layout=args.apgd_layout,
+                              device=device)
+    if args.dynamics != "torch":
+        raise NotImplementedError(
+            f"--dynamics {args.dynamics} (the host-MuJoCo A/B backend) is not "
+            "ported (ROADMAP.md, queue A, item 'Parity modes and tools')")
+    model = build_humanoid(apgd_layout=args.apgd_layout, device=device)
+    if args.warm_iterations >= 0:
+        model = dataclasses.replace(model,
+                                    warm_iterations=args.warm_iterations)
+    if args.joint_limits == "mocap":
+        model = mocap_hinge_range(model)
+    return model
+
+
 def make_env(args, model):
-    """``DPEnvV3`` of one clip, or ``DPEnvV3Multi`` for ``--motion a,b``
-    with the JAX CLI's coercions to what the multi-clip env supports (a
-    warning for each explicit flag it overrides)."""
+    """``DPEnvV1`` or ``DPEnvV2`` of one clip; ``DPEnvV3`` of one clip; or
+    ``DPEnvV3Multi`` for ``--motion a,b`` with the JAX CLI's coercions to
+    what the multi-clip env supports (a warning for each explicit flag it
+    overrides)."""
+    if args.env_id != "DPEnvV3":
+        env_cls = DPEnvV1 if args.env_id == "DPEnvV1" else DPEnvV2
+        return env_cls(clip=args.motion, model=model)
     if "," not in args.motion:
         return DPEnvV3(clip=args.motion, model=model,
                        reward_mode=args.reward_mode,
@@ -207,18 +246,8 @@ def main(argv=None):
     """Runs the task; returns the final ``TRPOState`` or ``PPOState``
     (train) or the ``EvalResult`` (evaluate, sample)."""
     args = build_parser().parse_args(argv)
-    if args.dynamics != "torch":
-        raise NotImplementedError(
-            f"--dynamics {args.dynamics} (the host-MuJoCo A/B backend) is not "
-            "ported (ROADMAP.md, queue A, item 'Parity modes and tools')")
     device = resolve_device(args.device or PLATFORMS.get(args.platform))
-    model = build_humanoid(apgd_layout=args.apgd_layout, device=device)
-    if args.warm_iterations >= 0:
-        model = dataclasses.replace(model,
-                                    warm_iterations=args.warm_iterations)
-    if args.joint_limits == "mocap":
-        model = mocap_hinge_range(model)
-    env = make_env(args, model)
+    env = make_env(args, make_model(args, device))
     hidden_sizes = (tuple(int(h) for h in args.hidden_sizes.split(","))
                     if args.hidden_sizes else None)
     policy = MlpPolicy(ob_dim=env.observation_size, ac_dim=env.action_size,

@@ -1,6 +1,7 @@
 """Batched quaternion algebra in PyTorch (port of the functions of
 ``deepmimic_mujoco_tpu/utils/quaternion.py`` that FK, the integrator, the
-root-aware observation, the imitation rewards and the 197-D surface call).
+root-aware observation, the imitation rewards, the 197-D surface, DPEnvV1's
+velocity table and the DeepMimic facade call).
 Quaternions are ``(..., 4)`` in wxyz order; every function broadcasts over
 leading dimensions."""
 
@@ -85,6 +86,21 @@ def to_axis_angle(q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     axis = v / torch.clamp(n, min=_EPS)[..., None]
     axis = torch.where(n[..., None] > 1e-9, axis, torch.zeros_like(axis))
     return axis, angle
+
+
+def log_map(q: torch.Tensor) -> torch.Tensor:
+    """Rotation vector (axis·angle, angle wrapped to (−π, π]) of ``q``; zero
+    where the axis is (|v| ≤ 1e-9, :func:`to_axis_angle`'s branch)."""
+    axis, angle = to_axis_angle(q)
+    return axis * angle[..., None]
+
+
+def angular_velocity(q0: torch.Tensor, q1: torch.Tensor, dt) -> torch.Tensor:
+    """Angular velocity taking ``q0`` to ``q1`` over ``dt``: the body-frame
+    difference ``q0* ⊗ q1`` as axis·angle / dt (the call order of the
+    reference's ``calc_rot_vel`` is kept)."""
+    axis, angle = to_axis_angle(mul(conj(q0), q1))
+    return (angle / dt)[..., None] * axis
 
 
 def angle_between(q0: torch.Tensor, q1: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Tests of the port that need the card: the APGD kernels against their
 plain PyTorch version, and the main path on CUDA against the CPU (the
-walk, the recipe, the multi-clip env, the learners and the original
-DeepMimic PPO stack's surface and train step).
+walk, the recipe, the multi-clip env, the learners, the original
+DeepMimic PPO stack's surface and train step, and the other envs:
+DPEnvV1, DPEnvV2, HumanoidTestEnv, VecNormalize and the facade).
 
 Imports no JAX (the card's machine has none), so it runs there without the
 repository's conftest:
@@ -788,3 +789,41 @@ def test_dp_train_on_batch_on_the_card_matches_the_cpu(cuda):
                                  out["cpu"][2])
     for k, bound in chip_smoke.DP_PARAM_BOUNDS.items():
         assert d[k] <= bound, (k, d[k], d["worst"][k])
+
+
+@pytest.mark.parametrize("name", ["DPEnvV1", "DPEnvV2", "HumanoidTestEnv"])
+def test_other_envs_on_the_card_match_the_cpu(cuda, name):
+    """16 envs x 10 control steps of DPEnvV1, DPEnvV2 (dt 0.002, 6
+    substeps) and HumanoidTestEnv (5 substeps and the obs' cold forward)
+    on the card and on the CPU from the same starts and actions: qpos within
+    1e-3, rewards within 1e-3 of max(1, |r|), equal done flags,
+    HumanoidTestEnv's obs within 1e-3 of max(1, |x|) per block; 24, 24 and
+    21 ``apgd_solve`` launches per control step and no plain solve
+    (``chip_smoke.env_card_vs_cpu``, which raises otherwise)."""
+    import chip_smoke
+
+    rec = chip_smoke.env_card_vs_cpu(torch, ops, name)
+    assert rec["apgd_scan_calls"] == 0 and rec["done_equal"]
+
+
+def test_vec_normalize_on_the_card(cuda):
+    """``VecNormalize(VectorEnv(HumanoidTestEnv(), 256, "init"))``, 12
+    steps on the card: normalized obs finite and within ±10, 21 launches
+    per step plus 1 at each step with fresh starts, 1 at the reset
+    (``chip_smoke.vec_normalize_run``)."""
+    import chip_smoke
+
+    rec = chip_smoke.vec_normalize_run(torch, ops, n_envs=256, steps=12)
+    assert rec["finite"] and rec["max_abs_obs"] <= 10.0
+
+
+def test_deepmimic_facade_on_the_card_matches_the_cpu(cuda):
+    """10 ``set_action`` + ``update(1/30)`` of ``DeepMimicEnv(reward_mode=
+    "imitation")`` under the walk clip's PD targets, card vs CPU:
+    ``record_state`` and ``calc_reward`` within 1e-3 after each, equal
+    ``check_terminate``, 8 launches per update
+    (``chip_smoke.facade_card_vs_cpu``)."""
+    import chip_smoke
+
+    rec = chip_smoke.facade_card_vs_cpu(torch, ops, updates=10)
+    assert rec["terminate_equal"]

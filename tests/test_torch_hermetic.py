@@ -62,14 +62,25 @@ for surface in ("deepmimic", "v3"):
 sys.argv = ["get_action", "--device", "cpu", "--arg-file",
             "assets/args/run_humanoid3d_walk_args.txt"]
 runpy.run_module("deepmimic_mujoco_torch.cli.get_action", run_name="__main__")
+sys.argv = ["train_trpo", "--env-id", "DPEnvV2", "--task", "train", "--device",
+            "cpu", "--num-iters", "1", "--num-envs", "2",
+            "--timesteps-per-batch", "2", "--g-step", "1",
+            "--log-dir", TMP + "/vlogs", "--checkpoint-dir", TMP + "/vckpt"]
+runpy.run_module("deepmimic_mujoco_torch.cli.train_trpo", run_name="__main__")
+sys.argv = ["torque_test", "--device", "cpu", "--steps", "3"]
+runpy.run_module("deepmimic_mujoco_torch.cli.torque_test", run_name="__main__")
+sys.argv = ["play_mocap", "--device", "cpu", "--through-dynamics",
+            "--cycles", "1"]
+runpy.run_module("deepmimic_mujoco_torch.cli.play_mocap", run_name="__main__")
 assert not [m for m in sys.modules if m.split(".")[0] in FORBIDDEN]
 """
 
 
 def test_cli_evaluate_runs_with_jax_and_mujoco_refused(tmp_path):
     """The walk evaluation, the lane tool, GAIL training (BC included), PPO
-    training, the original-stack PPO CLI on both surfaces and get_action
-    run with JAX and MuJoCo refused."""
+    training, the original-stack PPO CLI on both surfaces, get_action,
+    DPEnvV2 training, torque_test and play_mocap run with JAX and MuJoCo
+    refused."""
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     spec = tmp_path / "spec.json"
     spec.write_text('{"BatchSize": 8, "MiniBatchSize": 4}')
@@ -91,6 +102,10 @@ def test_cli_evaluate_runs_with_jax_and_mujoco_refused(tmp_path):
         assert (tmp_path / "dckpt" / surface / "ppo-walk-0" /
                 "ppo_params.npz").exists()
     assert "shape: (36,)" in proc.stdout
+    assert (tmp_path / "vckpt" / "DPEnvV2" / "trpo-walk-0" /
+            "trpo_state.npz").exists()
+    assert "mean tracking reward over 3 steps" in proc.stdout
+    assert "cycle 0: mean config reward" in proc.stdout
 
 
 def _sources():
