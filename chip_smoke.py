@@ -124,14 +124,26 @@ Phases, each printing its lines before the last:
    on the card against the CPU (:func:`facade_card_vs_cpu`) and, in-process,
    ``cli.train_trpo --env-id DPEnvV1``, ``cli.torque_test``,
    ``cli.play_mocap`` and ``gym_shim.make("DPEnvV2")``
-   (:func:`envs_clis`); all before any profiler session; then profiler
+   (:func:`envs_clis`); then [physics-modes], the physics-fidelity modes
+   and the model importers (:func:`physics_modes_phase`): ``parse_mjcf(
+   to_mjcf(), 16, 16)`` and the shipped DeepMimic character on the card
+   against ``build_humanoid()`` (1e-6), ``calibrate_minv_mode`` on the card
+   against the CPU, then the bundled walk policy at 4096 envs on the
+   imported model (exact-cold, ne 64: 4 ``apgd_solve_wide`` launches per
+   control step, 32 steps), the euler humanoid (1 ``apgd_solve``, 32
+   steps), the Cholesky M⁻¹ (4, full stages, 16 steps) and PGS (0, 8
+   steps), env-steps/s and seconds per step, and each of the four 16 envs x
+   10 control steps on the card against the CPU (qpos, qvel and rewards
+   within 1e-3 of max(1, |x|), equal done flags); all before any profiler
+   session; then profiler
    windows
    of one env step's
    four solves through ``apgd()`` (blocks: four kernels and nothing else),
    and ``torch.profiler`` windows of 5 env steps at 4096 envs and of 3
    recipe steps at 4096 envs (step time, device busy share, kernel
    launches per step, the solve's device time and launches per step, top
-   kernels); then 16-env, 20-step rollouts on the card, of the walk
+   kernels), and of 2 steps of PGS and of the imported model; then
+   16-env, 20-step rollouts on the card, of the walk
    evaluation and of the recipe, held against the same rollouts on the CPU
    (plain versions: qpos and rewards within 1e-3, equal done flags);
 5. one JSON line with every kernel's numbers (with the registers, spills
@@ -144,6 +156,7 @@ Without CUDA the run stops before any phase.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -268,6 +281,7 @@ CPU_DP = (0.3732, 38.05)
 # [envs]: the other envs, their batch wrappers, the DeepMimic facade and
 # the CLIs that reach them
 ENV_CVC_ENVS, ENV_CVC_STEPS = 16, 10
+ENV_CVC_ATOL = 1e-3   # PERF.md §2's card-vs-CPU bound for the env paths
 # seeds of the card-vs-CPU actions, 0.1·N(0, 1); HumanoidTestEnv's is chosen
 # so that no root height comes within 1e-3 of 0.8 (closest: 3.1e-3)
 ENV_ACTION_SEED = {"DPEnvV1": 1, "DPEnvV2": 1, "HumanoidTestEnv": 3}
@@ -286,6 +300,23 @@ FACADE_STATE_UPDATES = 12
 # the port's CPU figures (both equal to JAX's on the CPU; tests/
 # test_torch_envs_v1_v2.py holds the printed lines): cli.torque_test
 # --steps 100 and cli.play_mocap --motion spinkick --through-dynamics
+# [physics-modes]: the parity modes and the imported models (slice 10).
+# Per case: its model, the APGD launches per control step on the card, and
+# the 4096-env run's steps
+MODE_CASES = ("import", "euler", "cholesky", "pgs")
+MODE_LAUNCHES = {"import": {"apgd_solve": 0, "apgd_solve_lanes": 0,
+                            "apgd_solve_wide": 4},
+                 "euler": {"apgd_solve": 1, "apgd_solve_lanes": 0,
+                           "apgd_solve_wide": 0},
+                 "cholesky": {"apgd_solve": 4, "apgd_solve_lanes": 0,
+                              "apgd_solve_wide": 0},
+                 "pgs": {"apgd_solve": 0, "apgd_solve_lanes": 0,
+                         "apgd_solve_wide": 0}}
+MODE_STEPS = {"import": 32, "euler": 32, "cholesky": 16, "pgs": 8}
+# the card-vs-CPU cases of [physics-modes] are those of [envs]
+# (env_card_vs_cpu): DPEnvV3's done thresholds, actions from SEED
+ENV_ACTION_SEED.update({case: SEED for case in MODE_CASES})
+ENV_DONE_AT.update({case: (0.7, 2.0) for case in MODE_CASES})
 CPU_TORQUE_TEST = 0.0265
 CPU_PLAY_MOCAP = 0.2112
 
@@ -459,6 +490,28 @@ def _counts(ops) -> dict:
         ops.apgd_solve, ops.apgd_solve_lanes, ops.apgd_solve_wide)}
 
 
+@contextlib.contextmanager
+def _watch(torch, ops):
+    """A counted run of the main path on the card: every kernel's launch
+    count set to 0 on entry and read on exit, the plain ``_apgd_scan`` spied
+    on (a run on the card must never call it), and the wall time between
+    two synchronizations.  Yields a dict holding ``scans`` (one entry per
+    plain call) and, after the block, ``launches`` and ``seconds``."""
+    plain, rec = ops._apgd_scan, {"scans": []}
+    ops._apgd_scan = lambda *a, **kw: rec["scans"].append(1) or plain(*a,
+                                                                      **kw)
+    try:
+        _zero_counts(ops)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield rec
+        torch.cuda.synchronize()
+        rec["seconds"] = time.perf_counter() - t0
+        rec["launches"] = _counts(ops)
+    finally:
+        ops._apgd_scan = plain
+
+
 def _larger_caps(torch, ops, steps: int = 20) -> int:
     """[caps] 16 envs x ``steps`` steps of the humanoid with 16/16 caps
     (ne = 64), uncapped (ne = 139) and in README's exact-cold configuration
@@ -489,20 +542,9 @@ def _larger_caps(torch, ops, steps: int = 20) -> int:
             if dev == "cpu":
                 out[dev] = runner.rollout(env, policy, params, state, steps)
                 continue
-            plain, scans = ops._apgd_scan, []
-
-            def spy(*args, **kw):
-                scans.append(1)
-                return plain(*args, **kw)
-
-            ops._apgd_scan = spy
-            _zero_counts(ops)
-            try:
+            with _watch(torch, ops) as w:
                 out[dev] = runner.rollout(env, policy, params, state, steps)
-                torch.cuda.synchronize()
-            finally:
-                ops._apgd_scan = plain
-            n = _counts(ops)
+            n, scans = w["launches"], w["scans"]
             want = {"apgd_solve": 0, "apgd_solve_lanes": 0,
                     "apgd_solve_wide": 4 * steps}
             if n != want or scans:
@@ -595,18 +637,9 @@ def _train(torch, ops, n_envs: int, kind: str = "walk",
         state, _ = iterate(state)
         for k in phase:
             phase[k] = 0.0
-    plain, scans = ops._apgd_scan, []
-    ops._apgd_scan = lambda *a, **kw: scans.append(1) or plain(*a, **kw)
-    _zero_counts(ops)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    try:
+    with _watch(torch, ops) as w:
         state, stats = iterate(state)
-        torch.cuda.synchronize()
-    finally:
-        ops._apgd_scan = plain
-    dt = time.perf_counter() - t0
-    n = _counts(ops)
+    dt, n, scans = w["seconds"], w["launches"], w["scans"]
     rec = {k: float(getattr(stats, k)) for k in (
         "meankl", "surrgain", "ev_tdlam_before", "optimgain", "entropy")}
     rec["EpLenMean"] = sum(lens) / len(lens) if lens else float("nan")
@@ -775,27 +808,13 @@ def _imitation_eval(torch, ops, train_trpo) -> dict:
     recipe's flags: 4096 RSI episodes x 300 steps, deterministic, the
     launch counts set to 0 just before and read just after; the plain
     ``_apgd_scan`` must not be called on the card."""
-    plain, scans = ops._apgd_scan, []
-
-    def spy(*args, **kw):
-        scans.append(1)
-        return plain(*args, **kw)
-
-    ops._apgd_scan = spy
-    _zero_counts(ops)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    try:
+    with _watch(torch, ops) as w:
         res = train_trpo.main([
             "--task", "evaluate", "--load-model-path", CKPT_R2,
             "--eval-episodes", str(B_MAIN), "--eval-horizon",
             str(IMIT_HORIZON), *RECIPE_FLAGS, "--device", "cuda",
             "--seed", str(SEED)])
-        torch.cuda.synchronize()
-    finally:
-        ops._apgd_scan = plain
-    dt = time.perf_counter() - t0
-    n = _counts(ops)
+    dt, n, scans = w["seconds"], w["launches"], w["scans"]
     lens = res.rollout.ep_len.double()
     rec = {"ep_len_mean": float(lens.mean()),
            "ep_len_median": float(lens.quantile(0.5)),
@@ -2134,19 +2153,32 @@ def _obs_blocks(env) -> dict:
     return out
 
 
+def _cvc_env(name: str, dev: str):
+    """A card-vs-CPU case's env: DPEnvV1, DPEnvV2 or HumanoidTestEnv, or
+    ``DPEnvV3(model=mode_model(name))`` for a [physics-modes] case."""
+    if name in MODE_CASES:
+        from deepmimic_mujoco_torch.envs.dp_env_v3 import DPEnvV3
+
+        return DPEnvV3(model=mode_model(name, dev))
+    return _other_env(name, dev)
+
+
 def env_card_vs_cpu(torch, ops, name: str, n_envs: int = ENV_CVC_ENVS,
                     steps: int = ENV_CVC_STEPS) -> dict:
-    """[envs] ``n_envs`` envs of ``name`` (DPEnvV1, DPEnvV2 or
-    HumanoidTestEnv) x ``steps`` control steps on the card and on the CPU,
-    from the same starts (clip frames; HumanoidTestEnv: noise starts drawn
-    on the CPU) and the same actions (0.1·N(0, 1) from a CPU generator).
-    Bounds: qpos within 1e-3, rewards within 1e-3 of max(1, |r|), equal
-    done flags at every step; HumanoidTestEnv's obs within 1e-3 of
-    max(1, |x|) per block.  On the card ``ENV_LAUNCHES[name]`` apgd_solve
-    launches per control step, no other APGD launch and no call of the
-    plain ``_apgd_scan``.  Reports the CPU root height's closest approach
-    to the done thresholds."""
-    envs = {d: _other_env(name, d) for d in ("cuda", "cpu")}
+    """[envs] or [physics-modes]: ``n_envs`` envs of ``name`` (DPEnvV1,
+    DPEnvV2, HumanoidTestEnv, or a ``MODE_CASES`` case: DPEnvV3 on
+    :func:`mode_model`) x ``steps`` control steps on the card and on the
+    CPU, from the same starts (clip frames; HumanoidTestEnv: noise starts
+    drawn on the CPU) and the same actions (0.1·N(0, 1) from a CPU
+    generator).  Bounds (``ENV_CVC_ATOL``): qpos within it absolutely,
+    rewards (and a mode's qvel) within it of max(1, |x|), equal done flags
+    at every step; HumanoidTestEnv's obs within it of max(1, |x|) per
+    block.  On the card exactly :func:`_cvc_launches` APGD launches per
+    control step and no call of the plain ``_apgd_scan``.  Reports the CPU
+    root height's closest approach to the done thresholds."""
+    mode = name in MODE_CASES
+    tag = "[physics-modes]" if mode else "[envs]"
+    envs = {d: _cvc_env(name, d) for d in ("cuda", "cpu")}
     if name == "HumanoidTestEnv":
         start = envs["cpu"].reset(torch.Generator().manual_seed(SEED), n_envs)
         states = {d: e.reset_to(start.qpos.to(d), start.qvel.to(d))
@@ -2158,33 +2190,26 @@ def env_card_vs_cpu(torch, ops, name: str, n_envs: int = ENV_CVC_ENVS,
         (steps, n_envs, 28),
         generator=torch.Generator().manual_seed(ENV_ACTION_SEED[name]))
     traj = {}
-    plain, scans = ops._apgd_scan, []
-    ops._apgd_scan = lambda *a, **kw: scans.append(1) or plain(*a, **kw)
-    try:
-        _zero_counts(ops)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    with _watch(torch, ops) as w:
         st, traj["cuda"] = states["cuda"], []
         for a in acts:
             st = envs["cuda"].step(st, a.to("cuda"))
             traj["cuda"].append(st)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        n = _counts(ops)
-    finally:
-        ops._apgd_scan = plain
+    n, scans = w["launches"], w["scans"]
     st, traj["cpu"] = states["cpu"], []
     for a in acts:
         st = envs["cpu"].step(st, a)
         traj["cpu"].append(st)
     lo, hi = ENV_DONE_AT[name]
-    rec = {"qpos": 0.0, "reward": 0.0, "done_equal": True, "obs": {},
-           "closest_to_threshold": float("inf")}
+    rel_fields = ("reward", "qvel") if mode else ("reward",)
+    rec = {"qpos": 0.0, **{k: 0.0 for k in rel_fields}, "done_equal": True,
+           "obs": {}, "closest_to_threshold": float("inf")}
     blocks = _obs_blocks(envs["cpu"]) if name == "HumanoidTestEnv" else {}
     for c, p in zip(traj["cuda"], traj["cpu"]):
         rec["qpos"] = max(rec["qpos"], float((c.qpos.cpu() - p.qpos)
                                              .abs().max()))
-        rec["reward"] = max(rec["reward"], _rel(c.reward.cpu(), p.reward))
+        for k in rel_fields:
+            rec[k] = max(rec[k], _rel(getattr(c, k), getattr(p, k)))
         rec["done_equal"] &= bool(torch.equal(c.done.cpu(), p.done))
         for k, sl in blocks.items():
             rec["obs"][k] = max(rec["obs"].get(k, 0.0),
@@ -2193,34 +2218,34 @@ def env_card_vs_cpu(torch, ops, name: str, n_envs: int = ENV_CVC_ENVS,
         rec["closest_to_threshold"] = min(
             rec["closest_to_threshold"],
             float(torch.minimum((z - lo).abs(), (z - hi).abs()).min()))
+    per_step = _cvc_launches(name)
     rec.update(launches=n, apgd_scan_calls=len(scans),
-               apgd_launches_per_control_step=n["apgd_solve"] / steps,
+               launches_per_control_step={k: v / steps for k, v in n.items()},
                done_at_end=int(traj["cpu"][-1].done.sum()),
-               card_s_per_control_step=dt / steps)
+               card_s_per_control_step=w["seconds"] / steps)
     obs_txt = (", obs per block " + ", ".join(
-        f"{k} {v:.3e}" for k, v in rec["obs"].items()) + " (bound 1e-3 of "
-        "max(1, |x|))") if blocks else ""
-    print(f"[envs] {name}, {n_envs} envs x {steps} control steps, card vs "
-          f"CPU from the same starts and actions: qpos max_abs_diff "
-          f"{rec['qpos']:.3e} (atol 1e-3), reward {rec['reward']:.3e} of "
-          f"max(1, |r|) (bound 1e-3){obs_txt}; done flags equal at every "
-          f"step {rec['done_equal']} ({rec['done_at_end']} done at the end; "
+        f"{k} {v:.3e}" for k, v in rec["obs"].items()) + " of max(1, |x|)"
+        ) if blocks else ""
+    print(f"{tag} {name}, {n_envs} envs x {steps} control steps, card vs "
+          f"CPU from the same starts and actions (bound {ENV_CVC_ATOL}): "
+          f"qpos max_abs_diff {rec['qpos']:.3e}, "
+          + ", ".join(f"{k} {rec[k]:.3e}" for k in rel_fields)
+          + f" of max(1, |x|){obs_txt}; done flags equal at every step "
+          f"{rec['done_equal']} ({rec['done_at_end']} done at the end; "
           f"root height's closest approach to {lo}/{hi}: "
           f"{rec['closest_to_threshold']:.4f}); on the card "
-          f"{rec['card_s_per_control_step']:.3f} s per control step, "
-          f"apgd_solve launches per control step "
-          f"{rec['apgd_launches_per_control_step']:.2f} ({n}), _apgd_scan "
-          f"called {len(scans)} times")
-    if not (rec["qpos"] <= 1e-3 and rec["reward"] <= 1e-3
-            and rec["done_equal"] and all(v <= 1e-3
-                                          for v in rec["obs"].values())):
-        raise AssertionError(f"[envs] {name}: the card disagrees with the "
+          f"{rec['card_s_per_control_step']:.3f} s per control step, APGD "
+          f"launches per control step {rec['launches_per_control_step']} "
+          f"({n}), _apgd_scan called {len(scans)} times")
+    if not (max(rec[k] for k in ("qpos", *rel_fields)) <= ENV_CVC_ATOL
+            and rec["done_equal"]
+            and all(v <= ENV_CVC_ATOL for v in rec["obs"].values())):
+        raise AssertionError(f"{tag} {name}: the card disagrees with the "
                              f"CPU: {rec}")
-    if n != {"apgd_solve": ENV_LAUNCHES[name] * steps,
-             "apgd_solve_lanes": 0, "apgd_solve_wide": 0} or scans:
-        raise AssertionError(f"[envs] {name}: APGD launches {n}, expected "
-                             f"{ENV_LAUNCHES[name]} per control step; "
-                             f"_apgd_scan {len(scans)}")
+    want = {k: v * steps for k, v in per_step.items()}
+    if n != want or scans:
+        raise AssertionError(f"{tag} {name}: APGD launches {n}, expected "
+                             f"{want}; _apgd_scan {len(scans)}")
     return rec
 
 
@@ -2474,6 +2499,155 @@ def envs_phase(torch, ops) -> dict:
     return rec
 
 
+def mode_model(case: str, dev: str):
+    """[physics-modes] the model of a case: the exported humanoid imported
+    by ``parse_mjcf`` at 16/16 caps (exact-cold, ne 64), the euler
+    humanoid, the default humanoid with the Cholesky M⁻¹, or with PGS."""
+    import dataclasses
+
+    from deepmimic_mujoco_torch.physics.humanoid import build_humanoid, to_mjcf
+    from deepmimic_mujoco_torch.physics.mjcf import parse_mjcf
+
+    if case == "import":
+        return parse_mjcf(to_mjcf(), contact_cap=16, limit_cap=16, device=dev)
+    if case == "euler":
+        return build_humanoid(integrator="euler", device=dev)
+    kw = {"cholesky": dict(minv_mode="cholesky"),
+          "pgs": dict(solver_mode="pgs")}[case]
+    return dataclasses.replace(build_humanoid(device=dev), **kw)
+
+
+def _imported_models(torch) -> dict:
+    """[physics-modes] ``parse_mjcf(to_mjcf(), 16, 16)`` and the shipped
+    DeepMimic character on the card: sizes, body masses and positions,
+    hinge ranges, gears and qpos0 equal ``build_humanoid()``'s to 1e-6,
+    ``minv_mode`` 'ns'; then ``calibrate_minv_mode`` on the card: 'ns' for
+    the humanoid, and for the ill-conditioned model of ``tests/
+    test_physics.py`` (one body 10⁶ times heavier, armature 10⁵ on four
+    hinges) the CPU's choice."""
+    import dataclasses
+
+    from deepmimic_mujoco_torch.physics import engine
+    from deepmimic_mujoco_torch.physics.deepmimic_character import (
+        load_character,
+    )
+    from deepmimic_mujoco_torch.physics.humanoid import build_humanoid
+
+    ref = build_humanoid(device="cuda")
+    t0 = time.perf_counter()
+    models = {"mjcf": mode_model("import", "cuda"),
+              "character": load_character(
+                  os.path.join(ROOT, "assets", "characters",
+                               "humanoid3d.json"),
+                  os.path.join(ROOT, "assets", "controllers",
+                               "humanoid3d_ctrl.json"), device="cuda")}
+    load_s = time.perf_counter() - t0
+    rec = {"load_s": load_s}
+    for name, m in models.items():
+        diff = max(float((getattr(m, f) - getattr(ref, f)).abs().max())
+                   for f in ("body_mass", "body_pos", "hinge_range",
+                             "actuator_gear", "qpos0"))
+        sizes = (m.nq, m.nv, m.nu) == (ref.nq, ref.nv, ref.nu)
+        rec[name] = {"max_abs_diff": diff, "sizes_equal": sizes,
+                     "minv_mode": m.minv_mode, "device": str(m.device)}
+        if not (sizes and diff <= 1e-6 and m.minv_mode == "ns"
+                and m.device.type == "cuda"):
+            raise AssertionError(f"[physics-modes] the imported {name} model "
+                                 f"is off: {rec[name]}")
+    bad = {}
+    for dev in ("cuda", "cpu"):
+        m = build_humanoid(device=dev)
+        bm, arma = m.body_mass.clone(), m.armature.clone()
+        bm[1] *= 1e6
+        arma[:4] = 1e5
+        bad[dev] = engine.calibrate_minv_mode(
+            dataclasses.replace(m, body_mass=bm, armature=arma)).minv_mode
+    humanoid = engine.calibrate_minv_mode(ref).minv_mode
+    rec.update(calibrate_humanoid=humanoid, calibrate_ill_conditioned=bad)
+    print(f"[physics-modes] imported on the card in {load_s:.2f} s: "
+          f"parse_mjcf(to_mjcf(), 16, 16) max_abs_diff "
+          f"{rec['mjcf']['max_abs_diff']:.3e} and load_character(shipped "
+          f"json) {rec['character']['max_abs_diff']:.3e} from "
+          f"build_humanoid() (bound 1e-6), minv_mode "
+          f"{rec['mjcf']['minv_mode']}/{rec['character']['minv_mode']}; "
+          f"calibrate_minv_mode on the card: humanoid {humanoid}, the "
+          f"ill-conditioned model {bad['cuda']} (CPU {bad['cpu']})")
+    if humanoid != "ns" or bad["cuda"] != bad["cpu"]:
+        raise AssertionError(f"[physics-modes] calibration off: {rec}")
+    return rec
+
+
+def _cvc_launches(name: str) -> dict:
+    """APGD launches per control step of a card-vs-CPU case, per kernel."""
+    if name in MODE_CASES:
+        return MODE_LAUNCHES[name]
+    return {"apgd_solve": ENV_LAUNCHES[name], "apgd_solve_lanes": 0,
+            "apgd_solve_wide": 0}
+
+
+def _mode_eval(torch, ops, case: str) -> dict:
+    """[physics-modes] the bundled walk policy through ``runner.rollout`` on
+    ``DPEnvV3(model=mode_model(case))`` at 4096 envs x ``MODE_STEPS[case]``
+    steps from walk frames, after one untimed step (the first call's set-up:
+    cuSOLVER's for Cholesky, the allocator's): env-steps/s, seconds per
+    step, APGD launches per control step (exactly ``MODE_LAUNCHES[case]``,
+    no plain solve), finite states."""
+    from deepmimic_mujoco_torch.algos import runner
+    from deepmimic_mujoco_torch.envs.dp_env_v3 import DPEnvV3
+    from deepmimic_mujoco_torch.io_utils import checkpoint
+    from deepmimic_mujoco_torch.models.policy import MlpPolicy
+
+    steps = MODE_STEPS[case]
+    env = DPEnvV3(model=mode_model(case, "cuda"))
+    policy = MlpPolicy(ob_dim=56, ac_dim=28)
+    params = checkpoint.load_trpo_params(CKPT, policy, "cuda")
+    state = env.reset_at(torch.arange(B_MAIN) % env.clip_len)
+    runner.rollout(env, policy, params, state, 1)  # warm-up, not counted
+    with _watch(torch, ops) as w:
+        out = runner.rollout(env, policy, params, state, steps)
+    dt, n, scans = w["seconds"], w["launches"], w["scans"]
+    st = out.state
+    finite = all(bool(torch.isfinite(x).all())
+                 for x in (st.qpos, st.qvel, st.obs))
+    rec = {"env_steps_per_s": B_MAIN * steps / dt, "seconds": dt,
+           "s_per_step": dt / steps, "launches": n,
+           "launches_per_control_step": {k: v / steps for k, v in n.items()},
+           "avg_len": float(out.ep_len.float().mean()), "finite": finite,
+           "apgd_scan_calls": len(scans)}
+    print(f"[physics-modes] {case}: the walk policy, {B_MAIN} envs x {steps} "
+          f"steps after 1 untimed: {rec['env_steps_per_s']:.1f} env-steps/s "
+          f"({rec['s_per_step']:.4f} s per step), APGD launches per control "
+          f"step {rec['launches_per_control_step']}, _apgd_scan called "
+          f"{len(scans)} times, mean length {rec['avg_len']:.2f}, finite "
+          f"{finite}")
+    want = {k: v * steps for k, v in MODE_LAUNCHES[case].items()}
+    if not finite or n != want or scans:
+        raise AssertionError(f"[physics-modes] {case} at {B_MAIN} envs: "
+                             f"{rec}, expected launches {want}")
+    return rec
+
+
+def physics_modes_phase(torch, ops) -> dict:
+    """[physics-modes]: the imported models and the calibration, then each
+    case at 4096 envs (:func:`_mode_eval`) and card vs CPU
+    (:func:`env_card_vs_cpu`).  Returns the records; ``launches`` sums
+    each kernel's launches over the phase."""
+    t0 = time.perf_counter()
+    rec = {"imported": _imported_models(torch)}
+    launches = {"apgd_solve": 0, "apgd_solve_lanes": 0, "apgd_solve_wide": 0}
+    for case in MODE_CASES:
+        rec[case] = {"evaluate": _mode_eval(torch, ops, case),
+                     "card_vs_cpu": env_card_vs_cpu(torch, ops, case)}
+        for part in rec[case].values():
+            for k, v in part["launches"].items():
+                launches[k] += v
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"[physics-modes] the phase took {rec['seconds']:.1f} s; APGD "
+          f"launches {launches}")
+    return rec
+
+
 def _profile(torch, runner, env, policy, params, state, steps: int,
              tag: str) -> dict:
     """A ``torch.profiler`` window of ``steps`` env steps (after 2 warm-up
@@ -2492,8 +2666,10 @@ def _profile(torch, runner, env, policy, params, state, steps: int,
             for e in prof.key_averages()
             if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
     busy_us = sum(r[0] for r in rows)
-    apgd_us = sum(r[0] for r in rows if "apgd_kernel" in r[2])
-    apgd_n = sum(r[1] for r in rows if "apgd_kernel" in r[2]) / steps
+    solve = [r for r in rows if "apgd_kernel" in r[2]
+             or "apgd_wide_kernel" in r[2]]
+    apgd_us = sum(r[0] for r in solve)
+    apgd_n = sum(r[1] for r in solve) / steps
     launches_per_step = sum(r[1] for r in rows) / steps
     top = sorted(rows, reverse=True)[:5]
     ms = 1e3 * steps
@@ -2825,6 +3001,13 @@ def main() -> int:
     envs_rec = envs_phase(torch, ops)
     launches["apgd_solve"] += envs_rec["launches"]
 
+    # the physics-fidelity modes and the imported models (euler, the
+    # Cholesky M⁻¹, PGS, parse_mjcf at 16/16 caps); before any profiler
+    # session
+    modes = physics_modes_phase(torch, ops)
+    launches["apgd_solve"] += modes["launches"]["apgd_solve"]
+    wide_launches += modes["launches"]["apgd_solve_wide"]
+
     # one env step's four solves through the dispatch: the wrappers' counts
     # give the launches; profiler windows show what ran on the device (a
     # window may miss a kernel's record, so the most any window saw is read)
@@ -2860,6 +3043,14 @@ def main() -> int:
         checkpoint.load_trpo_params(CKPT_R2, imit_policy, "cuda"),
         imit_env.reset_at(torch.arange(B_MAIN) % imit_env.clip_len), 3,
         "[imitation] [profile]")
+    # a PGS step's launches (its sweeps are plain PyTorch) and the imported
+    # model's exact-cold step, the first user path on the wide kernel
+    for case in ("pgs", "import"):
+        m_env = DPEnvV3(model=mode_model(case, "cuda"))
+        modes[case]["profile"] = _profile(
+            torch, runner, m_env, policy, params,
+            m_env.reset_at(torch.arange(B_MAIN) % m_env.clip_len), 2,
+            f"[physics-modes] [profile] {case}")
 
     # the card's rollout against the CPU's (plain versions), small input
     idx = torch.arange(16) * 2 % 39
@@ -2929,6 +3120,7 @@ def main() -> int:
     kernels[0]["ppo"] = ppo
     kernels[0]["dp_ppo"] = dp
     kernels[0]["envs"] = envs_rec
+    kernels[0]["physics_modes"] = modes
     print(f"[done] {time.perf_counter() - t_start:.1f} s after the imports")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -35,7 +35,7 @@ def main(argv=None) -> np.ndarray:
     if args.video:
         raise NotImplementedError(
             "--video (io_utils/video.py, MuJoCo rendering) is not ported "
-            "(ROADMAP.md, queue A, item 5)")
+            "(ROADMAP.md, queue A, item 3)")
 
     clip = get_clip(args.motion)
     print(f"{clip.name}: {len(clip)} frames, dt={clip.dt:.4f}, "

@@ -15,8 +15,10 @@ widens the hinge ranges to the bundled clips' poses; ``--warm-iterations``
 sets the model's warm-started solve budget; ``--clip-weights`` weights the
 clips' RSI draws.  ``--algo ppo`` trains the vectorized clipped-surrogate
 PPO (``algos/ppo.py``, the ``--ppo-*`` flags) and evaluates its
-checkpoints.  Not ported: ``--dynamics mujoco`` on DPEnvV3 raises
-``NotImplementedError`` naming ROADMAP.md.
+checkpoints.  ``--dynamics mujoco`` steps single-clip DPEnvV3's physics in
+host MuJoCo (``physics/mj_host.py``: torque control, MuJoCo needed; the
+rest runs on ``--device``); the multi-clip env ignores it with a warning
+and DPEnvV1/V2 ignore it, as in JAX.
 
 Examples:
   python -m deepmimic_mujoco_torch.cli.train_trpo --task train \\
@@ -156,7 +158,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help=">=0 sets the model's warm-started solve budget "
                         "(-1 keeps the default)")
     p.add_argument("--dynamics", default="torch", choices=["torch", "mujoco"],
-                   help="physics backend (mujoco: not ported)")
+                   help="physics backend: the port's engine, or real MuJoCo "
+                        "on the host (A/B runs; torque control)")
     p.add_argument("--clip-weights", default=None,
                    help="multi-clip only: comma list of RSI sampling "
                         "weights per clip, e.g. 1,1,2")
@@ -190,10 +193,6 @@ def make_model(args, device):
             raise ValueError("multi-clip requires DPEnvV3")
         return build_humanoid(dt=0.002, apgd_layout=args.apgd_layout,
                               device=device)
-    if args.dynamics != "torch":
-        raise NotImplementedError(
-            f"--dynamics {args.dynamics} (the host-MuJoCo A/B backend) is not "
-            "ported (ROADMAP.md, queue A, item 'Parity modes and tools')")
     model = build_humanoid(apgd_layout=args.apgd_layout, device=device)
     if args.warm_iterations >= 0:
         model = dataclasses.replace(model,
@@ -213,7 +212,7 @@ def make_env(args, model):
         return env_cls(clip=args.motion, model=model)
     if "," not in args.motion:
         return DPEnvV3(clip=args.motion, model=model,
-                       reward_mode=args.reward_mode,
+                       reward_mode=args.reward_mode, dynamics=args.dynamics,
                        control_mode=args.control_mode,
                        n_substeps=args.n_substeps,
                        max_episode_steps=args.max_episode_steps,
@@ -227,6 +226,9 @@ def make_env(args, model):
             warnings.warn(f"--reward-mode {reward_mode} is not an imitation "
                           "mode; multi-clip uses imitation_dm")
         reward_mode = "imitation_dm"
+    if args.dynamics != "torch":
+        warnings.warn("multi-clip supports the torch backend only; "
+                      f"--dynamics {args.dynamics} ignored")
     if 0 < args.n_substeps < 2:
         warnings.warn("multi-clip requires >=2 substeps (30 Hz control); "
                       f"--n-substeps {args.n_substeps} raised to 2")

@@ -19,8 +19,9 @@ clip frames through ``_clip_index`` (``cursor_scale`` frames per control
 step; looping clips wrap and re-base the root per cycle, the others clamp
 and end the episode at the last frame).
 
-``dynamics="mujoco"`` (the JAX package's host-MuJoCo A/B backend) is not
-ported and raises, naming ROADMAP.md."""
+``dynamics="mujoco"`` steps the physics in host MuJoCo instead
+(``physics/mj_host.py``: the A/B backend; torque control only, MuJoCo
+needed); the states still live on the env's device."""
 
 from __future__ import annotations
 
@@ -78,12 +79,10 @@ class DPEnvV3:
                  pd_target_interp: bool = True,
                  clip_velocities: str = "consistent",
                  device: torch.device | str | None = None):
-        if dynamics == "mujoco":
-            raise NotImplementedError(
-                "dynamics 'mujoco' (the host-MuJoCo A/B backend) is not "
-                "ported (ROADMAP.md, queue A, item 'Parity modes and tools')")
-        if dynamics != "torch":
+        if dynamics not in ("torch", "mujoco"):
             raise ValueError(f"unknown dynamics backend {dynamics!r}")
+        if dynamics == "mujoco" and control_mode != "torque":
+            raise ValueError("the mujoco backend supports torque control only")
         if reward_mode not in ("alive", "mocap") + _IMITATION:
             raise ValueError(f"unknown reward_mode {reward_mode!r}")
         if control_mode not in ("torque", "pd", "pd_residual"):
@@ -167,6 +166,12 @@ class DPEnvV3:
             self._dynamics = lambda qp, qv, target: engine.step_pd(
                 self.model, qp, qv, target, self._kp, self._kd,
                 n_substeps=self.n_substeps)
+        elif dynamics == "mujoco":
+            from deepmimic_mujoco_torch.physics.mj_host import MJHostDynamics
+
+            mj = MJHostDynamics(self.model)
+            self._dynamics = lambda qp, qv, ctrl: mj.step(
+                qp, qv, ctrl, n_substeps=self.n_substeps)
         else:
             self._dynamics = lambda qp, qv, ctrl: engine.step(
                 self.model, qp, qv, ctrl, n_substeps=self.n_substeps)

@@ -1,6 +1,7 @@
-"""The humanoid3d model (port of ``deepmimic_mujoco_tpu/physics/humanoid.py:
-build_humanoid``): 13 bodies, 28 hinges, 45 kg, built through
-:class:`ModelBuilder` with the same geometry, masses, ranges and gears."""
+"""The humanoid3d model (port of ``deepmimic_mujoco_tpu/physics/humanoid.py``):
+13 bodies, 28 hinges, 45 kg, built through :class:`ModelBuilder` with the
+same geometry, masses, ranges and gears; ``to_mjcf`` and ``to_mjcf_v1_ball``
+export it as MJCF for host MuJoCo."""
 
 from __future__ import annotations
 
@@ -132,6 +133,212 @@ def build_humanoid(dt: float = 0.0166, integrator: str = "rk4",
         warm_iterations=warm_iterations, solver_dtype=solver_dtype,
         stage_reuse=stage_reuse, stage_iterations=stage_iterations,
         apgd_layout=apgd_layout)
+
+
+def to_mjcf(model: PhysicsModel | None = None, timestep: float = 0.0166,
+            integrator: str = "RK4", visual: bool = False) -> str:
+    """An MJCF string equivalent to :func:`build_humanoid`, for host MuJoCo
+    (``physics/mj_host.py``, the checks against MuJoCo) and for rendering;
+    byte for byte the JAX package's.  ``model`` is not read (the tables of
+    this module are).  ``visual=True`` adds render-only dressing (a checker
+    ground texture, a headlight) that :func:`parse_mjcf` ignores."""
+    lines = [
+        '<mujoco model="humanoid_tpu">',
+        '  <compiler angle="radian" inertiafromgeom="true"/>',
+        '  <default>',
+        '    <joint limited="true" armature="1" damping="1"/>',
+        '    <geom conaffinity="1" condim="1" contype="1" margin="0.001"/>',
+        '    <motor ctrllimited="true" ctrlrange="-0.5 0.5"/>',
+        '  </default>',
+        f'  <option integrator="{integrator}" iterations="50" solver="PGS" timestep="{timestep}"/>',
+    ]
+    floor_visual = ""
+    if visual:
+        lines += [
+            '  <visual>',
+            '    <headlight ambient="0.4 0.4 0.4" diffuse="0.6 0.6 0.6"/>',
+            '  </visual>',
+            '  <asset>',
+            '    <texture name="grid" type="2d" builtin="checker" '
+            'rgb1="0.2 0.3 0.4" rgb2="0.8 0.8 0.8" width="512" height="512"/>',
+            '    <material name="grid_mat" texture="grid" texrepeat="8 8" '
+            'texuniform="true" reflectance="0.2"/>',
+            '  </asset>',
+        ]
+        floor_visual = ' material="grid_mat"'
+    lines += [
+        '  <worldbody>',
+        f'    <geom condim="3" friction="1 .1 .1" name="floor" pos="0 0 0" '
+        f'size="50 50 0.2" type="plane"{floor_visual}/>',
+    ]
+
+    children: dict[str, list[str]] = {}
+    parents = {}
+    for name, parent, pos in _BODIES:
+        parents[name] = parent
+        children.setdefault(parent, []).append(name)
+
+    def fmt(v):
+        return " ".join(repr(round(float(x), 9)) for x in v)
+
+    def emit_body(name: str, indent: str):
+        pos = dict((n, p) for n, par, p in [(x[0], x[1], x[2]) for x in _BODIES])[name]
+        lines.append(f'{indent}<body name="{name}" pos="{fmt(pos)}">')
+        if name == "root":
+            lines.append(
+                f'{indent}  <joint armature="0" damping="0" limited="false" '
+                f'name="root" pos="0 0 0" stiffness="0" type="free"/>'
+            )
+        elif name in _SPHERICAL:
+            for axis_name, axis, rng in zip(
+                "xyz", ("1 0 0", "0 1 0", "0 0 1"), _SPHERICAL[name]
+            ):
+                lines.append(
+                    f'{indent}  <joint name="{name}_{axis_name}" axis="{axis}" '
+                    f'pos="0 0 0" range="{rng[0]} {rng[1]}" type="hinge"/>'
+                )
+        else:
+            rng = _REVOLUTE[name]
+            lines.append(
+                f'{indent}  <joint name="{name}" axis="0 -1 0" pos="0 0 0" '
+                f'range="{rng[0]} {rng[1]}" type="hinge"/>'
+            )
+        for g_name, g_body, g_type, g_mass, spec in _GEOMS:
+            if g_body != name:
+                continue
+            if "fromto" in spec:
+                lines.append(
+                    f'{indent}  <geom name="{g_name}" type="capsule" mass="{g_mass}" '
+                    f'size="{spec["size"][0]}" fromto="{fmt(spec["fromto"])}"/>'
+                )
+            else:
+                tname = {SPHERE: "sphere", BOX: "box"}[g_type]
+                size = spec["size"] if g_type == BOX else spec["size"][:1]
+                lines.append(
+                    f'{indent}  <geom name="{g_name}" type="{tname}" mass="{g_mass}" '
+                    f'pos="{fmt(spec["pos"])}" size="{fmt(size)}"/>'
+                )
+        for child in children.get(name, []):
+            emit_body(child, indent + "  ")
+        lines.append(f"{indent}</body>")
+
+    emit_body("root", "    ")
+    lines.append("  </worldbody>")
+    # same contact excludes as the reference model
+    lines.append("  <contact>")
+    for b1, b2 in [
+        ("right_hip", "root"), ("left_hip", "root"),
+        ("right_hip", "right_knee"), ("left_hip", "left_knee"),
+        ("right_knee", "right_ankle"), ("left_knee", "left_ankle"),
+        ("right_elbow", "right_shoulder"), ("left_elbow", "left_shoulder"),
+    ]:
+        lines.append(f'    <exclude body1="{b1}" body2="{b2}"/>')
+    lines.append("  </contact>")
+    lines.append("  <actuator>")
+    for joint in _JOINT_ORDER:
+        if joint in _SPHERICAL:
+            for axis_name in "xyz":
+                nm = f"{joint}_{axis_name}"
+                lines.append(f'    <motor gear="{_GEARS[joint]}" joint="{nm}" name="{nm}"/>')
+        else:
+            lines.append(f'    <motor gear="{_GEARS[joint]}" joint="{joint}" name="{joint}"/>')
+    lines.append("  </actuator>")
+    lines.append("</mujoco>")
+    return "\n".join(lines)
+
+
+def to_mjcf_v1_ball(timestep: float = 0.002) -> str:
+    """The ball-joint v1 variant of the humanoid as MJCF, byte for byte the
+    JAX package's: the bodies, geoms and gears of :func:`to_mjcf`, each
+    3-dof hinge stack as one MuJoCo ``ball`` joint with per-axis motors, in
+    the v1 parameters (dt 0.002, armature 0.02, damping 5).  For host MuJoCo
+    only (the engine is hinge-native).  A ball's range is a cone on the
+    total rotation angle: the largest per-axis magnitude of the hinge
+    ranges."""
+    lines = [
+        '<mujoco model="humanoid_tpu_v1_ball">',
+        '  <compiler angle="radian" inertiafromgeom="true"/>',
+        '  <default>',
+        '    <joint limited="true" armature="0.02" damping="5"/>',
+        '    <geom conaffinity="1" condim="1" contype="1" margin="0.001"/>',
+        '    <motor ctrllimited="true" ctrlrange="-0.5 0.5"/>',
+        '  </default>',
+        f'  <option integrator="RK4" iterations="50" solver="PGS" '
+        f'timestep="{timestep}"/>',
+        '  <worldbody>',
+        '    <geom condim="3" friction="1 .1 .1" name="floor" pos="0 0 0" '
+        'size="50 50 0.2" type="plane"/>',
+    ]
+    children: dict[str, list[str]] = {}
+    for name, parent, pos in _BODIES:
+        children.setdefault(parent, []).append(name)
+    body_pos = {n: p for n, _, p in _BODIES}
+
+    def fmt(v):
+        return " ".join(repr(round(float(x), 9)) for x in v)
+
+    def emit_body(name: str, indent: str):
+        lines.append(f'{indent}<body name="{name}" pos="{fmt(body_pos[name])}">')
+        if name == "root":
+            lines.append(
+                f'{indent}  <joint armature="0" damping="0" limited="false" '
+                f'name="root" pos="0 0 0" stiffness="0" type="free"/>')
+        elif name in _SPHERICAL:
+            cone = max(abs(b) for rng in _SPHERICAL[name] for b in rng)
+            lines.append(
+                f'{indent}  <joint name="{name}" pos="0 0 0" '
+                f'range="0 {round(cone, 6)}" type="ball"/>')
+        else:
+            rng = _REVOLUTE[name]
+            lines.append(
+                f'{indent}  <joint name="{name}" axis="0 -1 0" pos="0 0 0" '
+                f'range="{rng[0]} {rng[1]}" type="hinge"/>')
+        for g_name, g_body, g_type, g_mass, spec in _GEOMS:
+            if g_body != name:
+                continue
+            if "fromto" in spec:
+                lines.append(
+                    f'{indent}  <geom name="{g_name}" type="capsule" '
+                    f'mass="{g_mass}" size="{spec["size"][0]}" '
+                    f'fromto="{fmt(spec["fromto"])}"/>')
+            else:
+                tname = {SPHERE: "sphere", BOX: "box"}[g_type]
+                size = spec["size"] if g_type == BOX else spec["size"][:1]
+                lines.append(
+                    f'{indent}  <geom name="{g_name}" type="{tname}" '
+                    f'mass="{g_mass}" pos="{fmt(spec["pos"])}" '
+                    f'size="{fmt(size)}"/>')
+        for child in children.get(name, []):
+            emit_body(child, indent + "  ")
+        lines.append(f"{indent}</body>")
+
+    emit_body("root", "    ")
+    lines.append("  </worldbody>")
+    lines.append("  <contact>")
+    for b1, b2 in [
+        ("right_hip", "root"), ("left_hip", "root"),
+        ("right_hip", "right_knee"), ("left_hip", "left_knee"),
+        ("right_knee", "right_ankle"), ("left_knee", "left_ankle"),
+        ("right_elbow", "right_shoulder"), ("left_elbow", "left_shoulder"),
+    ]:
+        lines.append(f'    <exclude body1="{b1}" body2="{b2}"/>')
+    lines.append("  </contact>")
+    lines.append("  <actuator>")
+    for joint in _JOINT_ORDER:
+        if joint in _SPHERICAL:
+            for k, axis_name in enumerate("xyz"):
+                gear = [0, 0, 0]
+                gear[k] = _GEARS[joint]
+                lines.append(
+                    f'    <motor gear="{gear[0]} {gear[1]} {gear[2]}" '
+                    f'joint="{joint}" name="{joint}_{axis_name}"/>')
+        else:
+            lines.append(
+                f'    <motor gear="{_GEARS[joint]}" joint="{joint}" '
+                f'name="{joint}"/>')
+    lines.append("  </actuator>")
+    lines.append("</mujoco>")
+    return "\n".join(lines)
 
 
 def mocap_hinge_range(model: PhysicsModel | None = None, clips=None,

@@ -62,6 +62,15 @@ class PhysicsModel:
     parent: tuple = ()
     max_contacts: int = 1 << 30   # top-k cap on simultaneous floor contacts
     max_limits: int = 1 << 30     # top-k cap on simultaneous limit rows
+    # M⁻¹: "ns" = Jacobi-scaled Newton–Schulz (batched matmuls) or
+    # "cholesky" (a batched Cholesky factor and solves: slower, robust for
+    # any SPD M); engine.calibrate_minv_mode measures the NS residual of a
+    # model and picks, as the MJCF importer does
+    minv_mode: str = "ns"
+    # constraint solver: "apgd" (the batched APGD kernels) or "pgs"
+    # (sequential projected Gauss–Seidel sweeps, the structure of MuJoCo's
+    # PGS: the parity mode for A/B runs against host MuJoCo)
+    solver_mode: str = "apgd"
     dt: float = 0.0166
     iterations: int = 50          # cold APGD budget
     warm_iterations: int = 0      # >0: warm-started stage-1 solves at this budget

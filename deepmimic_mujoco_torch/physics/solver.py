@@ -1,6 +1,6 @@
 """Soft-constraint contact/limit solver, batch-first (port of
 ``deepmimic_mujoco_tpu/physics/solver.py``: ``_impedance``, ``_kb``,
-``assemble_system``, ``solve_system``).
+``_project_cone``, ``pgs_solve``, ``assemble_system``, ``solve_system``).
 
 MuJoCo-style constraint model (solref = (timeconst, dampratio), solimp =
 (dmin, dmax, width, mid, power)):
@@ -10,11 +10,12 @@ MuJoCo-style constraint model (solref = (timeconst, dampratio), solimp =
     minimize_f  ½ fᵀ(A+R)f + fᵀ(J qacc_smooth - aref)   s.t.  f ∈ cone
 
 solved in the dual with APGD (``ops/apgd.py``: the CUDA kernel on the card,
-the plain version on the CPU)."""
+the plain version on the CPU), or with ``solver_mode="pgs"`` by sequential
+projected Gauss–Seidel sweeps in plain PyTorch (:func:`pgs_solve`)."""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -38,6 +39,51 @@ def _kb(model: PhysicsModel) -> tuple[torch.Tensor, torch.Tensor]:
     k = 1.0 / (dmax * dmax * tc * tc * dr * dr)
     b = 2.0 / (dmax * tc)
     return k, b
+
+
+def _project_cone(f: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
+    """Project (..., 3) [normal, t1, t2] onto the elliptic friction cone of
+    friction ``mu`` (...)."""
+    fn = f[..., 0]
+    ft = f[..., 1:]
+    t = torch.linalg.vector_norm(ft, dim=-1)
+    inside = t <= mu * fn
+    below = mu * t <= -fn  # the polar cone projects to zero
+    fn_p = torch.clamp((fn + mu * t) / (1.0 + mu * mu), min=0.0)
+    scale = torch.where(t > 1e-12, mu * fn_p / torch.clamp(t, min=1e-12),
+                        torch.zeros_like(t))
+    f_proj = torch.cat([fn_p[..., None], ft * scale[..., None]], dim=-1)
+    f_keep = torch.cat([torch.clamp(fn, min=0.0)[..., None], ft], dim=-1)
+    out = torch.where(inside[..., None], f_keep, f_proj)
+    return torch.where(below[..., None], torch.zeros_like(out), out)
+
+
+def pgs_solve(a: torch.Tensor, bvec: torch.Tensor, mu: torch.Tensor,
+              nc: int, nl: int, n_sweeps: int,
+              f0: torch.Tensor | None = None) -> torch.Tensor:
+    """Projected Gauss–Seidel sweeps over the dual system, batched over the
+    env axis: a (B, ne, ne), bvec (B, ne), mu (B, nc) → f (B, ne).  Each
+    sweep visits the contact 3-blocks in row order, then the limit rows; a
+    block's 3 rows update together by its residual over its (clamped)
+    diagonal and project onto its own friction cone, a limit row clamps at
+    f ≥ 0.  The structure of MuJoCo's PGS solver: the parity mode for A/B
+    runs against host MuJoCo, sequential by nature — plain PyTorch, a few
+    launches per block and sweep, not the APGD kernels' batched matvec."""
+    B, ne = bvec.shape
+    diag = torch.clamp(torch.diagonal(a, dim1=1, dim2=2), min=1e-8)
+    f = a.new_zeros(B, ne) if f0 is None else f0.clone()
+    for _ in range(n_sweeps):
+        for i in range(nc):
+            s = 3 * i
+            r = torch.bmm(a[:, s:s + 3, :], f[:, :, None])[:, :, 0] \
+                + bvec[:, s:s + 3]
+            f[:, s:s + 3] = _project_cone(f[:, s:s + 3] - r / diag[:, s:s + 3],
+                                          mu[:, i])
+        for i in range(nl):
+            s = 3 * nc + i
+            r = torch.bmm(a[:, s:s + 1, :], f[:, :, None])[:, 0, 0] + bvec[:, s]
+            f[:, s] = torch.clamp(f[:, s] - r / diag[:, s], min=0.0)
+    return f
 
 
 class EfcSolution(NamedTuple):
@@ -66,12 +112,16 @@ def _caps(model: PhysicsModel) -> tuple[int, int, int, int]:
             nc_full, nl_full)
 
 
-def assemble_system(model: PhysicsModel, minv: torch.Tensor,
+# M⁻¹ applied to the columns of x (B, nv, k) (engine._inv_mul)
+InvMul = Callable[[torch.Tensor], torch.Tensor]
+
+
+def assemble_system(model: PhysicsModel, inv_mul: InvMul,
                     contacts: Contacts, limits: Limits) -> ConstraintSystem:
     """Top-k selection of the deepest ``max_contacts``/``max_limits``
-    candidates and assembly of the dual matrix A = J M⁻¹ Jᵀ + R.  ``minv``
-    is the explicit inverse mass matrix (B, nv, nv)."""
-    B = minv.shape[0]
+    candidates and assembly of the dual matrix A = J M⁻¹ Jᵀ + R.
+    ``inv_mul`` maps x (B, nv, k) to M⁻¹x."""
+    B = contacts.pos.shape[0]
     nv = model.nv
     nc, nl, _, _ = _caps(model)
 
@@ -91,7 +141,7 @@ def assemble_system(model: PhysicsModel, minv: torch.Tensor,
     # constraint rows (static shape, masked); limit rows are ±e_{6+dof}
     j_c = torch.where(c_act[:, :, None, None], c_jac,
                       torch.zeros_like(c_jac)).reshape(B, nc * 3, nv)
-    j_l = minv.new_zeros(B, nl, nv).scatter(2, 6 + l_sel[:, :, None],
+    j_l = c_jac.new_zeros(B, nl, nv).scatter(2, 6 + l_sel[:, :, None],
                                             l_sign[:, :, None])
     j_l = torch.where(l_act[:, :, None], j_l, torch.zeros_like(j_l))
     j = torch.cat([j_c, j_l], dim=1)  # (B, ne, nv)
@@ -105,14 +155,15 @@ def assemble_system(model: PhysicsModel, minv: torch.Tensor,
     act_rows = torch.cat([c_act.repeat_interleave(3, dim=1), l_act], dim=1)
 
     # dual matrix A = J M⁻¹ Jᵀ plus the impedance regularizer R on its diagonal
-    minv_jt = torch.einsum("xvw,xrw->xrv", minv, j)  # rows of M⁻¹ Jᵀ
-    a = torch.bmm(j, minv_jt.transpose(1, 2))
+    a = torch.bmm(j, inv_mul(j.transpose(1, 2)))
     diag_a = torch.diagonal(a, dim1=1, dim2=2)
     r = (1.0 - d_rows) / d_rows * torch.clamp(diag_a, min=1e-8)
     r = torch.where(act_rows, r, torch.ones_like(r))
     a = a + torch.diag_embed(r)
-    # bf16 storage halves the bytes the solve reads; iterates stay f32
-    a_solve = a.to(torch.bfloat16) if model.solver_dtype == "bf16" else a
+    # bf16 storage halves the bytes the APGD solve reads (iterates stay
+    # f32); PGS always solves in f32
+    a_solve = (a.to(torch.bfloat16) if model.solver_mode != "pgs"
+               and model.solver_dtype == "bf16" else a)
 
     c_rows = (c_sel[:, :, None] * 3
               + torch.arange(3, device=c_sel.device)).reshape(B, -1)
@@ -125,8 +176,8 @@ def solve_system(model: PhysicsModel, system: ConstraintSystem,
                  qacc_smooth: torch.Tensor, qvel: torch.Tensor,
                  f_warm: torch.Tensor | None = None,
                  iterations: int | None = None) -> EfcSolution:
-    """Reference accelerations + the APGD dual solve on an assembled (maybe
-    frozen) system; forces come back in the full candidate layout, so a
+    """Reference accelerations + the dual solve (APGD, or PGS under
+    ``solver_mode="pgs"``) on an assembled (maybe frozen) system; forces come back in the full candidate layout, so a
     warm start ``f_warm`` (B, ncand*3 + nhinge) carries across selections."""
     nc, nl, nc_full, nl_full = _caps(model)
     B = qvel.shape[0]
@@ -146,8 +197,13 @@ def solve_system(model: PhysicsModel, system: ConstraintSystem,
                         f_warm.gather(1, nc_full * 3 + system.lim_dof)], dim=1)
         f0 = torch.where(system.act_rows, f0, torch.zeros_like(f0))
 
-    f = apgd(system.a_solve, bvec, system.mu, f0, iterations=n_iters,
-             nc=nc, nl=nl, layout=model.apgd_layout)
+    if model.solver_mode == "pgs":
+        f = pgs_solve(system.a_solve, bvec, system.mu, nc, nl, n_iters, f0)
+    elif model.solver_mode == "apgd":
+        f = apgd(system.a_solve, bvec, system.mu, f0, iterations=n_iters,
+                 nc=nc, nl=nl, layout=model.apgd_layout)
+    else:
+        raise ValueError(f"unknown solver_mode {model.solver_mode!r}")
     f = torch.where(system.act_rows, f, torch.zeros_like(f))
     qfrc = torch.einsum("xrv,xr->xv", system.j, f)
 

@@ -1,7 +1,5 @@
-"""Batched quaternion algebra in PyTorch (port of the functions of
-``deepmimic_mujoco_tpu/utils/quaternion.py`` that FK, the integrator, the
-root-aware observation, the imitation rewards, the 197-D surface, DPEnvV1's
-velocity table and the DeepMimic facade call).
+"""Batched quaternion algebra in PyTorch (port of
+``deepmimic_mujoco_tpu/utils/quaternion.py``).
 Quaternions are ``(..., 4)`` in wxyz order; every function broadcasts over
 leading dimensions."""
 
@@ -44,6 +42,11 @@ def rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return v + 2.0 * (w * uv + torch.linalg.cross(u, uv))
 
 
+def rotate_inv(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate ``v`` by the inverse of ``q``: ``R(q)ᵀ @ v``."""
+    return rotate(conj(q), v)
+
+
 def to_mat(q: torch.Tensor) -> torch.Tensor:
     """Unit quaternion (..., 4) → rotation matrix (..., 3, 3)."""
     w, x, y, z = q.unbind(-1)
@@ -54,6 +57,41 @@ def to_mat(q: torch.Tensor) -> torch.Tensor:
     row1 = torch.stack([2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)], dim=-1)
     row2 = torch.stack([2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)], dim=-1)
     return torch.stack([row0, row1, row2], dim=-2)
+
+
+def from_mat(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) → unit quaternion (..., 4), w ≥ 0, by
+    Shepperd's method without branches: all four candidates are built (each
+    square root floored at ``_EPS``) and chosen in JAX's order — w where the
+    trace is positive, else x where m00 is the largest diagonal entry, else
+    y where m11 > m22, else z."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(x):
+        return torch.sqrt(torch.clamp(x, min=_EPS))
+
+    s_w = safe_sqrt(1.0 + tr) * 2.0  # 4w
+    q_w = torch.stack([0.25 * s_w, (m21 - m12) / s_w, (m02 - m20) / s_w,
+                       (m10 - m01) / s_w], dim=-1)
+    s_x = safe_sqrt(1.0 + m00 - m11 - m22) * 2.0  # 4x
+    q_x = torch.stack([(m21 - m12) / s_x, 0.25 * s_x, (m01 + m10) / s_x,
+                       (m02 + m20) / s_x], dim=-1)
+    s_y = safe_sqrt(1.0 - m00 + m11 - m22) * 2.0  # 4y
+    q_y = torch.stack([(m02 - m20) / s_y, (m01 + m10) / s_y, 0.25 * s_y,
+                       (m12 + m21) / s_y], dim=-1)
+    s_z = safe_sqrt(1.0 - m00 - m11 + m22) * 2.0  # 4z
+    q_z = torch.stack([(m10 - m01) / s_z, (m02 + m20) / s_z,
+                       (m12 + m21) / s_z, 0.25 * s_z], dim=-1)
+    cond_w = (tr > 0.0)[..., None]
+    cond_x = ((m00 > m11) & (m00 > m22))[..., None]
+    cond_y = (m11 > m22)[..., None]
+    q = torch.where(cond_w, q_w,
+                    torch.where(cond_x, q_x, torch.where(cond_y, q_y, q_z)))
+    q = torch.where(q[..., :1] < 0, -q, q)
+    return normalize(q)
 
 
 def heading_inverse(q: torch.Tensor) -> torch.Tensor:
@@ -136,6 +174,11 @@ def integrate(q: torch.Tensor, omega: torch.Tensor, dt) -> torch.Tensor:
     """Integrate a unit quaternion by the *local-frame* angular velocity
     ``omega`` over ``dt`` (MuJoCo ``mju_quatIntegrate``: q ← q ⊗ exp(ω dt))."""
     return normalize(mul(q, exp_map(omega * dt)))
+
+
+def integrate_world(q: torch.Tensor, omega: torch.Tensor, dt) -> torch.Tensor:
+    """Integrate by the *world-frame* angular velocity: q ← exp(ω dt) ⊗ q."""
+    return normalize(mul(exp_map(omega * dt), q))
 
 
 def euler_rxyz_from_quat(q: torch.Tensor) -> torch.Tensor:

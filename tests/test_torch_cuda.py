@@ -1,8 +1,9 @@
 """Tests of the port that need the card: the APGD kernels against their
 plain PyTorch version, and the main path on CUDA against the CPU (the
 walk, the recipe, the multi-clip env, the learners, the original
-DeepMimic PPO stack's surface and train step, and the other envs:
-DPEnvV1, DPEnvV2, HumanoidTestEnv, VecNormalize and the facade).
+DeepMimic PPO stack's surface and train step, the other envs: DPEnvV1,
+DPEnvV2, HumanoidTestEnv, VecNormalize and the facade, and the
+physics-fidelity modes with the imported models).
 
 Imports no JAX (the card's machine has none), so it runs there without the
 repository's conftest:
@@ -827,3 +828,32 @@ def test_deepmimic_facade_on_the_card_matches_the_cpu(cuda):
 
     rec = chip_smoke.facade_card_vs_cpu(torch, ops, updates=10)
     assert rec["terminate_equal"]
+
+
+@pytest.mark.parametrize("case", ["import", "euler", "cholesky", "pgs"])
+def test_physics_modes_on_the_card_match_the_cpu(cuda, case):
+    """16 envs x 10 control steps of ``DPEnvV3`` on the imported humanoid
+    (``parse_mjcf`` at 16/16 caps: exact-cold, ne 64), the euler humanoid,
+    the Cholesky M⁻¹ and PGS, on the card and on the CPU from the same
+    frames and actions: qpos within 1e-3, qvel and rewards within 1e-3 of
+    max(1, |x|), equal done flags; 4 ``apgd_solve_wide``, 1 and 4
+    ``apgd_solve`` and 0 APGD launches per control step, no plain solve
+    (``chip_smoke.env_card_vs_cpu``, which raises otherwise)."""
+    import chip_smoke
+
+    rec = chip_smoke.env_card_vs_cpu(torch, ops, case)
+    assert rec["apgd_scan_calls"] == 0 and rec["done_equal"]
+    assert rec["launches"] == {k: 10 * v for k, v in
+                               chip_smoke.MODE_LAUNCHES[case].items()}
+
+
+def test_imported_models_and_calibration_on_the_card(cuda):
+    """``parse_mjcf(to_mjcf(), 16, 16)`` and the shipped character on the
+    card equal ``build_humanoid()`` to 1e-6 with ``minv_mode`` 'ns';
+    ``calibrate_minv_mode`` on the card decides as on the CPU
+    (``chip_smoke._imported_models``)."""
+    import chip_smoke
+
+    rec = chip_smoke._imported_models(torch)
+    assert rec["calibrate_humanoid"] == "ns"
+    assert rec["mjcf"]["max_abs_diff"] <= 1e-6

@@ -197,18 +197,47 @@ def test_env_accepts_configs_of_the_imitation_slice(kw, port_side):
 
 
 @pytest.mark.parametrize("case", ["mujoco", "euler"])
-def test_env_raises_on_configs_of_later_slices(case):
-    """The host-MuJoCo backend raises at construction, the euler
-    integrator at the first step; both name ROADMAP.md."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if case == "mujoco":
-            DPEnvV3(device="cpu", dynamics="mujoco")
-        else:
-            from deepmimic_mujoco_torch.physics.humanoid import build_humanoid
+def test_env_step_of_later_slices_matches_jax(case):
+    """``DPEnvV3`` on host MuJoCo (``dynamics="mujoco"``) and on the euler
+    humanoid, 4 envs from walk frames x 5 steps of the same torques 0.3·
+    N(0, 1) in both stacks: qpos, qvel, obs and rewards within 1e-4 of
+    max(1, |x|) on the euler humanoid (its one warm-budget solve per step,
+    sums in another order) and 1e-6 on MuJoCo (the same ``mj_step`` calls
+    from fresh caches), equal done flags."""
+    from deepmimic_mujoco_tpu.physics import build_humanoid as jax_build
+    from deepmimic_mujoco_tpu.physics import mj_host as jmj
+    from deepmimic_mujoco_torch.physics import mj_host
+    from deepmimic_mujoco_torch.physics.humanoid import build_humanoid
 
-            env = DPEnvV3(model=build_humanoid(integrator="euler",
-                                               device="cpu"))
-            env.step(env.reset_at([0]), torch.zeros(1, 28))
+    if case == "mujoco":
+        pytest.importorskip("mujoco")
+        jenv = JaxDPEnvV3(clip="walk", dynamics="mujoco")
+        tenv = DPEnvV3(clip="walk", dynamics="mujoco", device="cpu")
+        for fn in (jmj._mj_pool, mj_host._mj_pool):
+            fn.cache_clear()
+        rel = 1e-6
+    else:
+        jenv = JaxDPEnvV3(clip="walk", model=jax_build(integrator="euler"))
+        tenv = DPEnvV3(clip="walk", device="cpu",
+                       model=build_humanoid(integrator="euler", device="cpu"))
+        rel = 1e-4
+    idx = np.array([0, 7, 19, 30])
+    js = jax.vmap(jenv.reset_at)(jax.random.split(jax.random.PRNGKey(0), 4),
+                                 jnp.asarray(idx))
+    ts = tenv.reset_at(idx)
+    step = jax.jit(jax.vmap(jenv.step))
+    rng = np.random.RandomState(6)
+    for k in range(5):
+        ac = (0.3 * rng.randn(4, 28)).astype(np.float32)
+        js, ts = step(js, jnp.asarray(ac)), tenv.step(ts, torch.as_tensor(ac))
+        for name in ("qpos", "qvel", "obs", "reward"):
+            ref = np.asarray(getattr(js, name), np.float64)
+            err = float(np.abs(getattr(ts, name).numpy() - ref).max())
+            assert err <= rel * max(1.0, float(np.abs(ref).max())), (
+                k, name, err)
+        np.testing.assert_array_equal(ts.done.numpy(), np.asarray(js.done))
+    assert float(np.abs(ts.qpos.numpy() - np.asarray(
+        jenv.clip_qpos)[idx]).max()) > 1e-3
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,10 @@
 The machine with the card has PyTorch but neither JAX nor MuJoCo, so any
 import of them — or of ``deepmimic_mujoco_tpu``, whose modules import JAX —
 from ``deepmimic_mujoco_torch`` or ``chip_smoke.py`` would stop the port
-there at import.  One test runs the evaluation CLI in a subprocess whose
-import system refuses those packages; the other scans the sources."""
+there at import.  One test runs the CLIs in a subprocess whose import
+system refuses those packages, another imports the modules that reach the
+host-MuJoCo backend there; the others scan the sources.  MuJoCo may be
+imported only by ``physics/mj_host.py``, and only inside its functions."""
 
 import ast
 import os
@@ -15,6 +17,9 @@ import pytest
 
 ROOT = os.path.normpath(os.path.join(os.path.dirname(__file__), ".."))
 FORBIDDEN = ("jax", "jaxlib", "mujoco", "deepmimic_mujoco_tpu")
+# the one module that may import MuJoCo, inside its functions only
+MJ_HOST = os.path.join(ROOT, "deepmimic_mujoco_torch", "physics",
+                       "mj_host.py")
 
 _BLOCKER = """
 import runpy, sys
@@ -117,24 +122,80 @@ def _sources():
     yield os.path.join(ROOT, "chip_smoke.py")
 
 
-def _imported_roots(path):
+def _imports(path):
+    """(root package, inside a function) of every import in a source."""
     tree = ast.parse(open(path).read(), path)
-    for node in ast.walk(tree):
+
+    def visit(node, in_fn):
         if isinstance(node, ast.Import):
             for alias in node.names:
-                yield alias.name.split(".")[0]
+                yield alias.name.split(".")[0], in_fn
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module.split(".")[0]
+            yield node.module.split(".")[0], in_fn
         elif (isinstance(node, ast.Call) and node.args
               and isinstance(node.args[0], ast.Constant)
               and isinstance(node.args[0].value, str)
               and getattr(node.func, "attr", getattr(node.func, "id", ""))
               in ("import_module", "__import__")):
-            yield node.args[0].value.split(".")[0]
+            yield node.args[0].value.split(".")[0], in_fn
+        in_fn = in_fn or isinstance(node, (ast.FunctionDef,
+                                           ast.AsyncFunctionDef, ast.Lambda))
+        for child in ast.iter_child_nodes(node):
+            yield from visit(child, in_fn)
+
+    yield from visit(tree, False)
+
+
+def _imported_roots(path):
+    for root, _ in _imports(path):
+        yield root
 
 
 @pytest.mark.parametrize("path", sorted(_sources()),
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_port_sources_import_no_jax(path):
-    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    """No source imports JAX or the JAX package; none but
+    ``physics/mj_host.py`` imports MuJoCo."""
+    allowed = {"mujoco"} if path == MJ_HOST else set()
+    bad = sorted(set(_imported_roots(path)) & (set(FORBIDDEN) - allowed))
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def test_mj_host_imports_mujoco_only_inside_functions():
+    found = [in_fn for root, in_fn in _imports(MJ_HOST) if root == "mujoco"]
+    assert found and all(found), found
+
+
+_MJ_BLOCKER = """
+import sys
+FORBIDDEN = {forbidden!r}
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in FORBIDDEN:
+            raise ImportError(f"import of {{name}} refused")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import deepmimic_mujoco_torch.physics.mj_host
+import deepmimic_mujoco_torch.envs.dp_env_v3
+import deepmimic_mujoco_torch.cli.train_trpo
+from deepmimic_mujoco_torch.envs.dp_env_v3 import DPEnvV3
+try:
+    DPEnvV3(dynamics="mujoco", device="cpu")
+except ImportError as e:
+    print("refused:", e)
+assert not [m for m in sys.modules if m.split(".")[0] in FORBIDDEN]
+"""
+
+
+def test_mj_host_env_and_cli_import_with_mujoco_refused():
+    """``physics.mj_host``, ``envs.dp_env_v3`` and ``cli.train_trpo``
+    import with MuJoCo (and JAX) refused; only building the MuJoCo backend
+    reaches for it."""
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", _MJ_BLOCKER.format(forbidden=FORBIDDEN)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "refused: import of mujoco refused" in proc.stdout

@@ -611,17 +611,20 @@ def test_cli_multi_clip_motion_trains_and_evaluates(tmp_path):
     """Multi-clip ``--motion a,b``: one training iteration of walk+run at
     2 envs x 8 steps on the coerced env (PD-residual control, 2 substeps,
     an imitation reward; warnings for the overridden torque control and
-    substeps), whose checkpoint carries the clip ids and reads back; and
-    the bundled multiskill_r4 policy (walk, run, spinkick; 71-D obs)
-    evaluated for 2 episodes x 5 steps.  ``--dynamics mujoco`` raises,
-    naming ROADMAP.md."""
-    with pytest.warns(UserWarning, match="pd_residual"):
+    substeps, and for ``--dynamics mujoco``, which the multi-clip env
+    ignores as JAX's CLI does), whose checkpoint carries the clip ids and
+    reads back; and the bundled multiskill_r4 policy (walk, run, spinkick;
+    71-D obs) evaluated for 2 episodes x 5 steps."""
+    with pytest.warns(UserWarning) as caught:
         state = train_trpo.main([
             "--task", "train", "--device", "cpu", "--motion", "walk,run",
             "--num-iters", "1", "--num-envs", "2", "--timesteps-per-batch",
             "8", "--g-step", "1", "--hidden-sizes", "16",
+            "--dynamics", "mujoco",
             "--log-dir", str(tmp_path / "logs"),
             "--checkpoint-dir", str(tmp_path / "ckpt")])
+    said = " ".join(str(w.message) for w in caught)
+    assert "pd_residual" in said and "--dynamics mujoco ignored" in said
     assert state.env_state.obs.shape == (2, 2 + 1 + 11 + 56)
     assert set(state.env_state.clip_id.tolist()) <= {0, 1}
     path = str(tmp_path / "ckpt" / "DPEnvV3" / "trpo-walk+run-0" /
@@ -635,5 +638,3 @@ def test_cli_multi_clip_motion_trains_and_evaluates(tmp_path):
         "--load-model-path", CKPT_MULTI_R4, *RECIPE_FLAGS])
     assert res.avg_len == 5 and 0.5 < res.avg_ret < 5.0
     assert res.rollout.state.obs.shape == (2, 71)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_trpo.main(["--dynamics", "mujoco", "--device", "cpu"])

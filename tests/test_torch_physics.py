@@ -70,8 +70,6 @@ def test_model_matches_jax_field_by_field(models):
     assert (tm.nq, tm.nv, tm.nu) == (35, 34, 28)
     for f in dataclasses.fields(jm):
         ref = getattr(jm, f.name)
-        if f.name in ("minv_mode", "solver_mode"):  # only ns / apgd ported
-            continue
         out = getattr(tm, f.name)
         if isinstance(out, torch.Tensor):
             np.testing.assert_array_equal(out.numpy(), np.asarray(ref),
