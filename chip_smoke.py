@@ -41,13 +41,14 @@ Phases, each printing its lines before the last:
    ``ms``, ``device_ms``, bound (at the f32 and at the tensor cores' rate)
    and launch plan (envs and threads per block, shared memory, blocks
    resident per SM), and ptxas's registers and spills of the
-   instantiations those shapes run; then [caps]: 16 envs × 20 steps of the
+   instantiations those shapes run; then [caps]: 16 envs × 10 steps of the
    humanoid with 16/16 caps, uncapped and in the exact-cold configuration
    on the card, every solve through the wide kernel (counted;
    ``_apgd_scan`` not called), held against the same rollouts on the
    CPU;
 4. main path — ``cli.train_trpo --task evaluate`` of the bundled walk
-   checkpoint at 4096 envs × 200 steps and 768 × 50, once per kernel layout,
+   checkpoint at 4096 envs × 200 steps (blocks layout) and 768 × 50 (both
+   layouts),
    with the launch counts set to 0 just before each run and read just after,
    before any profiler session; then [train], also before any profiler
    session: ``TRPO.iteration`` at 768 envs × 16 steps (one warm-up, one
@@ -91,7 +92,7 @@ Phases, each printing its lines before the last:
    rollout, policy update, vf epochs and d-step seconds, DLoss, GenAcc,
    ExpertAcc, EpTrueRewMean, meankl ≤ 1.5·max_kl, 8 launches per control
    step), one d-step and segment update on the card against the CPU, and
-   ``cli.train_gail`` in-process with the run's flags at 64 envs, 200 BC
+   ``cli.train_gail`` in-process with the run's flags at 64 envs, 50 BC
    steps and 1 iteration (the BC loss goes down, the checkpoint reads
    back); then [ppo]: ``cli.train_trpo --algo ppo --task
    train`` in-process at 4096 envs x 64 steps for 2 iterations (env-steps/s,
@@ -142,10 +143,18 @@ Phases, each printing its lines before the last:
    and ``torch.profiler`` windows of 5 env steps at 4096 envs and of 3
    recipe steps at 4096 envs (step time, device busy share, kernel
    launches per step, the solve's device time and launches per step, top
-   kernels), and of 2 steps of PGS and of the imported model; then
+   kernels), and of 2 steps of PGS and of the imported model (all of it
+   after [dist] and [mocap-ingest], below); then
    16-env, 20-step rollouts on the card, of the walk
    evaluation and of the recipe, held against the same rollouts on the CPU
    (plain versions: qpos and rewards within 1e-3, equal done flags);
+   [dist] (before the profiler windows): data-parallel TRPO across
+   processes (:func:`dist_phase`: NCCL at world 1 against this process,
+   two gloo ranks on the one card at 4096 envs in total against one
+   process on the same segment, card vs CPU, the dry run), and
+   [mocap-ingest]: every bundled clip as DeepMimic JSON through the Python
+   and the native loaders, and walk_r2 on the recipe from the JSON walk
+   clip against the bundled one (:func:`mocap_ingest_phase`);
 5. one JSON line with every kernel's numbers (with the registers, spills
    and shared memory of the instantiation the main path runs, and ptxas's
    figures for every instantiation), then the result line.
@@ -185,6 +194,7 @@ WIDE = ((16, 16), (37, 28))  # (nc, nl): 16/16 caps (ne 64), uncapped (139)
 EXACT_COLD = dict(warm_iterations=0, solver_dtype="f32", contact_cap=16,
                   limit_cap=16)
 EXACT_COLD_ITERS = 50
+CAPS_STEPS = 10              # [caps] rollout steps
 TRAIN_HORIZON = 64           # bench.py's TRPO configuration: g_step 1
 TRAIN_HORIZON_768 = 16       # [train] at 768 envs: 64, cut
 MAX_KL = 0.01                # TRPOConfig's default
@@ -254,6 +264,7 @@ GAIL_FLAGS = ["--expert-path", EXPERT, "--motion", "walk", "--reward-mode",
               "rsi", "--n-substeps", "2", "--max-episode-steps", "300",
               "--obs-mode", "full"]
 GAIL_TRAIN_HORIZON = 32      # the run's 1024, cut
+GAIL_BC_ITERS = 50           # the CLI's BC steps in the smoke (of 10,000)
 # the 64 start frames that JAX's runner.evaluate draws from PRNGKey(0)
 GAIL_FRAMES = ("9,28,25,11,24,0,27,28,18,29,21,33,11,37,4,35,4,10,5,14,33,26,"
                "8,16,36,0,9,7,10,3,14,34,37,34,18,37,27,17,13,2,1,13,8,7,2,"
@@ -317,6 +328,15 @@ MODE_STEPS = {"import": 32, "euler": 32, "cholesky": 16, "pgs": 8}
 # (env_card_vs_cpu): DPEnvV3's done thresholds, actions from SEED
 ENV_ACTION_SEED.update({case: SEED for case in MODE_CASES})
 ENV_DONE_AT.update({case: (0.7, 2.0) for case in MODE_CASES})
+# [dist] (slice 11): TRPO across ranks
+DIST_ENVS = B_MAIN           # bench.py's width, in total over the ranks
+DIST_HORIZON = 16            # bench.py's 64, cut
+DIST_CVC_ENVS = 16           # per rank: the card-vs-CPU segment update
+DIST_EXACT = 1e-6            # NCCL world 1 against one process; replicas
+DIST_ONE_PROCESS = 1e-3      # 2 ranks against 1 process on the same segment
+# [mocap-ingest] (slice 11)
+INGEST_ATOL = 1e-12          # the f64 arrays of the JSON and native loaders
+INGEST_STEPS = 32
 CPU_TORQUE_TEST = 0.0265
 CPU_PLAY_MOCAP = 0.2112
 
@@ -512,7 +532,7 @@ def _watch(torch, ops):
         ops._apgd_scan = plain
 
 
-def _larger_caps(torch, ops, steps: int = 20) -> int:
+def _larger_caps(torch, ops, steps: int = CAPS_STEPS) -> int:
     """[caps] 16 envs x ``steps`` steps of the humanoid with 16/16 caps
     (ne = 64), uncapped (ne = 139) and in README's exact-cold configuration
     (ne = 64, f32 A), bundled checkpoint: on the card every
@@ -1421,7 +1441,8 @@ def _gail_card_vs_cpu(torch) -> dict:
 
 def _gail_cli(torch, tmp: str) -> dict:
     """[gail] ``cli.train_gail`` in-process with the r4 run's flags at 64
-    envs x 32 steps, BC pretraining of 200 steps, 1 iteration, in ``tmp``:
+    envs x 32 steps, BC pretraining of ``GAIL_BC_ITERS`` steps, 1
+    iteration, in ``tmp``:
     the BC loss goes down, the tabular keys are logged, and
     ``gail_state.npz`` reads back through ``load_gail_state``."""
     from deepmimic_mujoco_torch.algos.trpo import Draws
@@ -1432,7 +1453,7 @@ def _gail_cli(torch, tmp: str) -> dict:
     text, _ = _quiet(train_gail.main, [
         *GAIL_FLAGS, "--num-envs", "64", "--timesteps-per-batch",
         str(GAIL_TRAIN_HORIZON), "--num-iters", "1", "--pretrained",
-        "--bc-max-iters", "200", "--seed", str(SEED),
+        "--bc-max-iters", str(GAIL_BC_ITERS), "--seed", str(SEED),
         "--log-dir", os.path.join(tmp, "logs"),
         "--checkpoint-dir", os.path.join(tmp, "ckpt")])
     dt = time.perf_counter() - t0
@@ -1448,7 +1469,8 @@ def _gail_cli(torch, tmp: str) -> dict:
     rec = {"bc_loss_first": bc[0], "bc_loss_last": bc[-1], "seconds": dt,
            "progress": last, "expert_ptr": int(state.expert_ptr)}
     print(f"[gail] CLI train_gail, the r4 flags at 64 envs x "
-          f"{GAIL_TRAIN_HORIZON} steps, --pretrained --bc-max-iters 200, "
+          f"{GAIL_TRAIN_HORIZON} steps, --pretrained --bc-max-iters "
+          f"{GAIL_BC_ITERS}, "
           f"--num-iters 1, in-process: {dt:.1f} s; BC loss {bc[0]:.4f} -> "
           f"{bc[-1]:.4f}; last row "
           + ", ".join(f"{k} {last[k]}" for k in sorted(last))
@@ -2648,6 +2670,244 @@ def physics_modes_phase(torch, ops) -> dict:
     return rec
 
 
+def _smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def dist_phase(torch) -> dict:
+    """[dist] data-parallel TRPO across processes (``parallel/``, slice
+    11): one NCCL rank spawned (``init_process_group("nccl",
+    world_size=1)``) running ``TRPO.iteration`` at 4096 envs x 16 steps,
+    against the same iteration (the same draws) in this process within
+    1e-6; two gloo ranks on the one card at 4096 envs in total (2048 each)
+    x 16 steps, g_step 1: the replicas within 1e-6 and ``sync_check``
+    true, the policy leaves and ob_rms within 1e-3 of one process's
+    ``_segment_update`` on the ranks' two segments side by side, 4 APGD
+    launches per env step on each rank; the ranks' first 16 envs' segments
+    updated on 2 ranks on the card and on the CPU (the [train] segment
+    check's bounds); the dry run's TRPO, GAIL and dp-PPO steps on 2 gloo
+    ranks on the card.  Prints env-steps/s summed over the ranks, the
+    collectives per iteration and their seconds, and the card."""
+    from deepmimic_mujoco_torch.algos import adam
+    from deepmimic_mujoco_torch.algos.trpo import (flatten, policy_leaves,
+                                                   vf_leaves)
+    from deepmimic_mujoco_torch.parallel import dryrun, mesh
+
+    card = _smi()
+    rec = {"card": card}
+    per_rank = {"apgd_solve": 4 * DIST_HORIZON, "apgd_solve_lanes": 0,
+                "apgd_solve_wide": 0}
+    # 1. NCCL at world 1 against this process
+    t0 = time.perf_counter()
+    [one] = mesh.launch(dryrun.trpo_rank, 1, "nccl",
+                        args=("cuda", DIST_ENVS, DIST_HORIZON),
+                        device="cuda", timeout=600)
+    local = dryrun.run_trpo(None, 0, 1, "cuda", DIST_ENVS, DIST_HORIZON)
+    d_one = _rel(one["flat"], local["flat"])
+    rec["nccl_world1"] = {
+        "max_rel_diff": d_one, "seconds": one["seconds"],
+        "collectives": one["collectives"],
+        "collective_s": one["collective_s"], "launches": one["launches"],
+        "launch_s": time.perf_counter() - t0}
+    print(f"[dist] NCCL world 1: TRPO.iteration {DIST_ENVS} envs x "
+          f"{DIST_HORIZON} steps in a spawned rank against the same "
+          f"iteration in this process: params max diff / max(1, max|x|) "
+          f"{d_one:.3e} (bound {DIST_EXACT}); {one['seconds']:.3f} s, "
+          f"{one['collectives']} collectives ({one['collective_s']:.3f} s); "
+          f"launches {one['launches']}; {card}")
+    if not (d_one <= DIST_EXACT and one["synced"]
+            and one["launches"] == per_rank == local["launches"]):
+        raise AssertionError(f"[dist] NCCL world 1: {rec['nccl_world1']}, "
+                             f"in-process launches {local['launches']}")
+    # 2. two gloo ranks on the one card, the full width in total, and the
+    # dry run's steps in the same launch
+    t0 = time.perf_counter()
+    ranks = mesh.launch(mesh.run_many, 2, "gloo", args=([
+        (dryrun.trpo_rank, ("cuda", DIST_ENVS, DIST_HORIZON, dryrun.SEED,
+                            True)),
+        (dryrun.dryrun_rank, ("cuda",))],), device="cuda", timeout=900)
+    launch_s = time.perf_counter() - t0
+    it = [r[0] for r in ranks]
+    d_rep = _rel(it[1]["flat"], it[0]["flat"])
+    learner = dryrun.walk_learner(torch.device("cuda", 0), DIST_ENVS,
+                                   DIST_HORIZON)
+    params0 = learner.init(torch.Generator(device="cuda").manual_seed(
+        dryrun.SEED)).params
+    seg = {k: torch.cat([r["segment"][k] for r in it],
+                        dim=0 if k == "nextvpred" else 1).cuda()
+           for k in dryrun.SEG_KEYS}
+    gen = torch.Generator().manual_seed(SEED)
+    perms = torch.stack([torch.randperm(DIST_ENVS * DIST_HORIZON,
+                                        generator=gen) for _ in range(3)])
+    n_vf = sum(x.numel() for x in vf_leaves(params0))
+    p1 = learner._segment_update(params0, adam.init(n_vf, "cuda"), seg,
+                                 dryrun.FixedPerms(perms))[0]
+    d_pol = _rel(it[0]["pol"], flatten(policy_leaves(p1)))
+    d_rms = max(_rel(a, b) for a, b in zip(it[0]["ob_rms"], p1["ob_rms"]))
+    step = float((flatten(policy_leaves(p1))
+                  - flatten(policy_leaves(params0))).abs().max())
+    rate = sum(r["env_steps"] / r["seconds"] for r in it)
+    rec["gloo_world2"] = {
+        "env_steps_per_s": rate, "seconds": [r["seconds"] for r in it],
+        "collectives": [r["collectives"] for r in it],
+        "collective_s": [r["collective_s"] for r in it],
+        "launches": [r["launches"] for r in it], "replica_rel_diff": d_rep,
+        "synced": [r["synced"] for r in it], "one_process_pol": d_pol,
+        "one_process_ob_rms": d_rms, "one_process_step": step,
+        "meankl": [r["meankl"] for r in it], "launch_s": launch_s}
+    print(f"[dist] gloo world 2 on one card: TRPO.iteration "
+          f"{DIST_ENVS // 2} + {DIST_ENVS // 2} envs x {DIST_HORIZON} steps, "
+          f"g_step 1: {rate:.1f} env-steps/s summed over the ranks "
+          f"(iteration {', '.join(f'{r['seconds']:.3f}' for r in it)} s); "
+          f"collectives per iteration {[r['collectives'] for r in it]}, "
+          f"{', '.join(f'{r['collective_s']:.3f}' for r in it)} s in them; "
+          f"apgd_solve launches per rank "
+          f"{[r['launches']['apgd_solve'] for r in it]}; replicas differ "
+          f"by {d_rep:.3e} (bound {DIST_EXACT}), sync_check "
+          f"{[r['synced'] for r in it]}; against one process on the same "
+          f"{DIST_ENVS}-env segment: policy {d_pol:.3e}, ob_rms "
+          f"{d_rms:.3e} of max(1, max|x|) (bound {DIST_ONE_PROCESS}; the "
+          f"policy step {step:.3e}); meankl "
+          f"{[round(r['meankl'], 6) for r in it]}")
+    if not (d_rep <= DIST_EXACT and all(r["synced"] for r in it)
+            and d_pol <= DIST_ONE_PROCESS and d_rms <= DIST_ONE_PROCESS
+            and all(r["launches"] == per_rank for r in it)
+            and all(r["meankl"] <= 1.5 * MAX_KL for r in it)):
+        raise AssertionError(f"[dist] gloo world 2: {rec['gloo_world2']}")
+    dry = [r[1] for r in ranks]
+    rec["dryrun"] = dry
+    print(f"[dist] dry run on 2 gloo ranks on the card: "
+          f"{dryrun.summary(2, dry[0])}"
+          f"; {dry[0]['collectives']} collectives per rank")
+    # 3. card vs CPU: the ranks' first 16 envs, updated on 2 ranks on each
+    segs = [{k: (v[:DIST_CVC_ENVS] if k == "nextvpred"
+                 else v[:, :DIST_CVC_ENVS]) for k, v in r["segment"].items()}
+            for r in it]
+    perms = torch.stack([torch.randperm(DIST_CVC_ENVS * DIST_HORIZON,
+                                        generator=gen) for _ in range(3)])
+    params_cpu = _tree_to(params0, "cpu")
+    cvc = mesh.launch(mesh.run_many, 2, "gloo", args=([
+        (dryrun.segment_rank, (dev, params_cpu, segs, perms))
+        for dev in ("cuda", "cpu")],), device="cuda", timeout=300)
+    bounds = {"pol": 1e-4, "vf": 1e-3, "ob_rms": 1e-5, "adam_m": 1e-3,
+              "losses": 1e-4, "ev": 1e-4}
+    diffs = {}
+    for r, (on_card, on_cpu) in enumerate(cvc):
+        for k in bounds:
+            if k == "ob_rms":
+                d = max(_rel(a, b) for a, b in zip(on_card[k], on_cpu[k]))
+            else:
+                d = _rel(on_card[k], on_cpu[k])
+            diffs[k] = max(diffs.get(k, 0.0), d)
+    same_step = all((c["stepsize"], c["accepted"]) == (p["stepsize"],
+                                                       p["accepted"])
+                    for c, p in cvc)
+    replicas = max(_rel(cvc[1][i]["pol"], cvc[0][i]["pol"]) for i in (0, 1))
+    rec["card_vs_cpu"] = dict(diffs, same_step=same_step,
+                              replica_rel_diff=replicas)
+    print(f"[dist] card vs CPU, 2 gloo ranks x {DIST_CVC_ENVS} envs x "
+          f"{DIST_HORIZON} steps, one _segment_update: max diff / max(1, "
+          f"max|x|): " + ", ".join(f"{k} {v:.3e} (bound {bounds[k]:.0e})"
+                                   for k, v in diffs.items())
+          + f"; step size {cvc[0][0]['stepsize']} / {cvc[0][1]['stepsize']}"
+          f", accepted {cvc[0][0]['accepted']} / {cvc[0][1]['accepted']}; "
+          f"replicas differ by {replicas:.3e}")
+    if not (all(diffs[k] <= bounds[k] for k in bounds) and same_step
+            and replicas <= DIST_EXACT
+            and all(c["synced"] and p["synced"] for c, p in cvc)):
+        raise AssertionError(f"[dist] card vs CPU: {rec['card_vs_cpu']}")
+    rec["launches"] = (one["launches"]["apgd_solve"]
+                       + local["launches"]["apgd_solve"]
+                       + sum(r["launches"]["apgd_solve"] for r in it))
+    return rec
+
+
+def mocap_ingest_phase(torch, ops) -> dict:
+    """[mocap-ingest] DeepMimic JSON clips (slice 11): every bundled clip's
+    raw frames and loop written as DeepMimic JSON, loaded by
+    ``load_deepmimic_json`` and by ``load_clip_native`` (the C++ library
+    built here with g++), both held against ``load_npz`` within 1e-12 (f64);
+    then the bundled ``walk_r2`` policy on the recipe at 4096 envs x 32
+    steps with ``DPEnvV3(clip=<walk.json>)`` and with ``clip="walk"``
+    (counted runs): states and rewards exactly equal."""
+    import tempfile
+
+    import numpy as np
+
+    from deepmimic_mujoco_torch.algos import runner
+    from deepmimic_mujoco_torch.envs.dp_env_v3 import DPEnvV3
+    from deepmimic_mujoco_torch.io_utils import checkpoint
+    from deepmimic_mujoco_torch.mocap import loader, native
+    from deepmimic_mujoco_torch.mocap.registry import (available_clips,
+                                                       clip_path)
+    from deepmimic_mujoco_torch.models.policy import MlpPolicy
+    from deepmimic_mujoco_torch.physics.humanoid import build_humanoid
+
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        err = {"json": 0.0, "native": 0.0}
+        names = available_clips()
+        for name in names:
+            with np.load(clip_path(name)) as z:
+                frames, loop = z["frames"], str(z["loop"])
+            path = os.path.join(tmp, name + ".json")
+            with open(path, "w") as fh:
+                json.dump({"Loop": loop, "Frames": frames.tolist()}, fh)
+            ref = loader.load_npz(clip_path(name))
+            for how, clip in (("json", loader.load_deepmimic_json(path)),
+                              ("native", native.load_clip_native(path))):
+                keys = ("durations", "qpos", "qvel", "raw_frames") + (
+                    ("quat_frames",) if how == "json" else ())
+                if clip.loop != ref.loop or clip.dt != ref.dt:
+                    raise AssertionError(f"[mocap-ingest] {name} {how}: "
+                                         f"loop or dt")
+                err[how] = max(err[how], *(float(np.abs(
+                    getattr(clip, k) - getattr(ref, k)).max()) for k in keys))
+        rec.update(clips=len(names), max_abs_err=err,
+                   load_s=time.perf_counter() - t0)
+        print(f"[mocap-ingest] {len(names)} bundled clips written as "
+              f"DeepMimic JSON, loaded by load_deepmimic_json and by the "
+              f"native library (g++, built here): max abs diff from "
+              f"load_npz {err['json']:.3e} / {err['native']:.3e} (bound "
+              f"{INGEST_ATOL}), {rec['load_s']:.2f} s")
+        if not (len(names) == 15 and max(err.values()) <= INGEST_ATOL):
+            raise AssertionError(f"[mocap-ingest] loaders: {rec}")
+        policy = MlpPolicy(**RECIPE_POLICY)
+        params = checkpoint.load_trpo_params(CKPT_R2, policy, "cuda")
+        outs = {}
+        for clip in (os.path.join(tmp, "humanoid3d_walk.json"), "walk"):
+            env = DPEnvV3(model=build_humanoid(device="cuda"),
+                          **{**RECIPE_ENV, "clip": clip})
+            state = env.reset_at(torch.arange(B_MAIN) % env.clip_len)
+            with _watch(torch, ops) as w:
+                out = runner.rollout(env, policy, params, state,
+                                     INGEST_STEPS, record=True)
+            outs["json" if clip != "walk" else "npz"] = (out, w)
+    (a, wa), (b, wb) = outs["json"], outs["npz"]
+    equal = {k: bool(torch.equal(getattr(a.state, k), getattr(b.state, k)))
+             for k in ("qpos", "qvel", "obs", "done")}
+    equal["rewards"] = bool(torch.equal(a.traj[2], b.traj[2]))
+    want = {"apgd_solve": 8 * INGEST_STEPS, "apgd_solve_lanes": 0,
+            "apgd_solve_wide": 0}
+    rec.update(equal=equal, seconds=[wa["seconds"], wb["seconds"]],
+               launches=[wa["launches"], wb["launches"]],
+               reward_per_step=float(a.traj[2].mean()))
+    print(f"[mocap-ingest] walk_r2 on the recipe, {B_MAIN} envs x "
+          f"{INGEST_STEPS} steps, DPEnvV3(clip=<walk.json>) against "
+          f"clip='walk': equal {equal}; {wa['seconds']:.2f} / "
+          f"{wb['seconds']:.2f} s; reward per step "
+          f"{rec['reward_per_step']:.4f}; launches {wa['launches']}")
+    if not (all(equal.values()) and wa["launches"] == wb["launches"] == want
+            and not wa["scans"] and not wb["scans"]):
+        raise AssertionError(f"[mocap-ingest] the JSON clip's run: {rec}")
+    return rec
+
+
 def _profile(torch, runner, env, policy, params, state, steps: int,
              tag: str) -> dict:
     """A ``torch.profiler`` window of ``steps`` env steps (after 2 warm-up
@@ -2709,10 +2969,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     # 1. device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])  # name, power limit
+    print(_smi())  # name, power limit
 
     # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
@@ -2920,10 +3177,12 @@ def main() -> int:
         return n[layout]
 
     launches = {"apgd_solve": 0, "apgd_solve_lanes": 0}
-    for n_envs, horizon in ((B_MAIN, HORIZON), (768, HORIZON_768)):
-        for layout in ("blocks", "lanes"):
-            launches[dispatch_of[layout]] += evaluate(n_envs, layout,
-                                                      horizon)
+    # the lanes layout at 768 envs only: a 4096-env run would measure the
+    # same kernel as the 768-env one
+    for n_envs, horizon, layout in ((B_MAIN, HORIZON, "blocks"),
+                                    (768, HORIZON_768, "blocks"),
+                                    (768, HORIZON_768, "lanes")):
+        launches[dispatch_of[layout]] += evaluate(n_envs, layout, horizon)
 
     # training: TRPO.iteration at 768 and 4096 envs, one segment update on
     # the card against the CPU, and the training CLI; still before any
@@ -3007,6 +3266,15 @@ def main() -> int:
     modes = physics_modes_phase(torch, ops)
     launches["apgd_solve"] += modes["launches"]["apgd_solve"]
     wide_launches += modes["launches"]["apgd_solve_wide"]
+
+    # data-parallel TRPO across processes (NCCL at world 1, gloo at world 2
+    # on the one card, card vs CPU, the dry run) and the DeepMimic JSON
+    # clips; before any profiler session
+    dist = dist_phase(torch)
+    launches["apgd_solve"] += dist["launches"]
+    ingest = mocap_ingest_phase(torch, ops)
+    launches["apgd_solve"] += sum(n["apgd_solve"]
+                                  for n in ingest["launches"])
 
     # one env step's four solves through the dispatch: the wrappers' counts
     # give the launches; profiler windows show what ran on the device (a
@@ -3121,6 +3389,8 @@ def main() -> int:
     kernels[0]["dp_ppo"] = dp
     kernels[0]["envs"] = envs_rec
     kernels[0]["physics_modes"] = modes
+    kernels[0]["dist"] = dist
+    kernels[0]["mocap_ingest"] = ingest
     print(f"[done] {time.perf_counter() - t_start:.1f} s after the imports")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3143,10 +3413,7 @@ def dp_witness() -> int:
         return 1
     from deepmimic_mujoco_torch.ops import apgd as ops
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(_smi())
     ops.load_kernels(("apgd",))
     rec = {}
     for dtype in ("bf16", "f32"):
@@ -3178,10 +3445,7 @@ def wide_vs(old_src: str) -> int:
     from deepmimic_mujoco_torch.ops import apgd as ops
     from deepmimic_mujoco_torch.ops import timing
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(_smi())
     ops.load_kernels(("apgd_wide",))
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     lib_path = os.path.join(_build.BUILD_DIR, "libapgd_wide_other.so")

@@ -18,6 +18,12 @@ each with the next sequential slice of the expert arrays (a cursor,
 random subsamples.  Every draw goes through the TRPO state's ``Draws``; the
 cursor and every statistic stay on the device, and an iteration reads
 nothing back to the host.
+
+Across ranks (``group``) the TRPO inside averages as TRPO does, and each
+d-step minibatch's gradient is averaged over the group.  The
+discriminator's obs-RMS is updated from the rank's own rows only, as in
+JAX (its d-step update has no ``axis_name``), so each rank's
+discriminator statistics, and its rewards, are its own.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from deepmimic_mujoco_torch.algos.trpo import (
     _unflatten,
     flatten,
 )
+from deepmimic_mujoco_torch.parallel.collectives import maybe_pmean
 from deepmimic_mujoco_torch.utils import running_stats
 
 
@@ -82,9 +89,10 @@ class GAIL:
     def __init__(self, env, policy, expert_obs, expert_acs,
                  config: GAILConfig = GAILConfig(),
                  adversary_hidden: int = 100,
-                 adversary_entcoeff: float = 1e-3):
+                 adversary_entcoeff: float = 1e-3, group=None):
         self.cfg = config
-        self.trpo = TRPO(env, policy, config.trpo)
+        self.group = group
+        self.trpo = TRPO(env, policy, config.trpo, group)
         self.env = env
         self.policy = policy
         self.device = env.device
@@ -143,7 +151,8 @@ class GAIL:
             p = {"net": _layers(_unflatten(theta, like)), "obs_rms": obs_rms}
             loss, metrics = self.disc.loss(p, g_obs[k], g_acs[k], e_obs[k],
                                            e_acs[k])
-            grad = torch.autograd.grad(loss, theta)[0]
+            grad = maybe_pmean(torch.autograd.grad(loss, theta)[0],
+                               self.group)
             with torch.no_grad():
                 d_flat, d_adam = adam.update(d_adam, grad, theta.detach(),
                                              self.cfg.d_stepsize)

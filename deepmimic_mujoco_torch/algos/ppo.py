@@ -11,6 +11,9 @@ minibatch with the population std plus 1e-8; the stats are those of the
 last minibatch of the last epoch; ``lr_scale`` is multiplied by
 ``lr_decay`` after each iteration.  The rollout is TRPO's, whose action
 noise, reset states and the epochs' permutations go through ``Draws``.
+Across ranks (``group``) the obs-RMS sums are summed and each minibatch's
+gradient averaged over the group, as JAX's ``axis_name`` collectives do;
+the minibatch stats stay the rank's own.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from deepmimic_mujoco_torch.algos.trpo import (
 )
 from deepmimic_mujoco_torch.envs.types import EnvState
 from deepmimic_mujoco_torch.models import distributions
+from deepmimic_mujoco_torch.parallel.collectives import maybe_pmean
 from deepmimic_mujoco_torch.utils.math import explained_variance
 
 
@@ -89,10 +93,12 @@ class PPO:
     # before any use, so the port records none
     _rollout = TRPO._rollout
 
-    def __init__(self, env, policy, config: PPOConfig = PPOConfig()):
+    def __init__(self, env, policy, config: PPOConfig = PPOConfig(),
+                 group=None):
         self.env = env
         self.policy = policy
         self.cfg = config
+        self.group = group
         self.device = env.device
         self._reset_fn = pick_reset_fn(env, config.reset_mode)
 
@@ -152,7 +158,8 @@ class PPO:
                 th = theta.requires_grad_(True)
                 loss, aux = self._loss(params, th, like,
                                        *(x[k] for x in mbs))
-                g = torch.autograd.grad(loss, th)[0]
+                g = maybe_pmean(torch.autograd.grad(loss, th)[0],
+                                self.group)
                 with torch.no_grad():
                     # the frozen-logstd mask before the norm clip, so the
                     # clip's norm holds no discarded component
@@ -177,7 +184,7 @@ class PPO:
                                           seg["new"], seg["nextvpred"],
                                           cfg.gamma, cfg.lam)
         adv, ret = adv.reshape(-1), tdlamret.reshape(-1)
-        params = self.policy.update_ob_rms(state.params, ob)
+        params = self.policy.update_ob_rms(state.params, ob, self.group)
         with torch.no_grad():
             nlp_old = self.policy.neglogp(params, ob, ac)
         params, opt, aux = self._update(params, state.opt, ob, ac, adv, ret,

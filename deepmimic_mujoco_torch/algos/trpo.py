@@ -27,6 +27,19 @@ it draws from a ``torch.Generator``; the parity tests hand it JAX's own
 draws instead.  Where JAX's line search and CG loops test a condition on
 the device, the port reads it on the host (one sync per CG iteration and
 per line-search step).
+
+Across ranks (``group``, a ``torch.distributed`` process group, in place of
+JAX's ``axis_name``) each rank rolls out its own envs and the update
+averages over the group at each of JAX's ``pmean`` points: the obs-RMS
+sums, the loss before the step and the policy gradient, every
+Fisher-vector product of CG, each line-search step's losses, the mean
+losses after it, and each vf minibatch's obs-RMS sums and gradient.  CG's
+stopping test and the line search's decision read only averaged values,
+so every rank takes the same step.  The advantages are standardized and
+the explained variance computed over the rank's own rows, as in JAX.  The
+update's draws (the vf permutations, and PPO's and GAIL's) come from the
+``Draws``' ``shared`` generator, seeded alike on every rank; the action
+noise and the resets from its per-rank ``generator``.
 """
 
 from __future__ import annotations
@@ -40,6 +53,7 @@ from deepmimic_mujoco_torch.algos import adam
 from deepmimic_mujoco_torch.algos.cg import cg
 from deepmimic_mujoco_torch.algos.gae import add_vtarg_and_adv
 from deepmimic_mujoco_torch.envs.types import EnvState
+from deepmimic_mujoco_torch.parallel.collectives import maybe_pmean
 from deepmimic_mujoco_torch.utils import running_stats
 from deepmimic_mujoco_torch.utils.math import explained_variance
 
@@ -66,11 +80,15 @@ class TRPOConfig(NamedTuple):
 
 
 class Draws:
-    """Every random draw of TRPO, PPO and GAIL, from one generator on the
-    env's device."""
+    """Every random draw of TRPO, PPO and GAIL, on the env's device: the
+    rollout's from ``generator``, the update's from ``shared`` (the same
+    generator unless one is given; across ranks, one seeded alike on every
+    rank, so that the replicated update draws alike)."""
 
-    def __init__(self, generator: torch.Generator):
+    def __init__(self, generator: torch.Generator,
+                 shared: torch.Generator | None = None):
         self.generator = generator
+        self.shared = generator if shared is None else shared
 
     def action_noise(self, mean: torch.Tensor) -> torch.Tensor:
         """N(0, 1) of ``mean``'s shape: one rollout step's action noise."""
@@ -91,7 +109,7 @@ class Draws:
     def vf_permutations(self, n: int, epochs: int,
                         device: torch.device) -> torch.Tensor:
         """(epochs, n): one permutation of the segment's rows per epoch."""
-        return torch.stack([torch.randperm(n, generator=self.generator,
+        return torch.stack([torch.randperm(n, generator=self.shared,
                                            device=device)
                             for _ in range(epochs)])
 
@@ -104,16 +122,16 @@ class Draws:
     def d_permutation(self, n: int, device: torch.device) -> torch.Tensor:
         """(n,): the order in which GAIL's exact d-step sweeps the last
         segment's rows."""
-        return torch.randperm(n, generator=self.generator, device=device)
+        return torch.randperm(n, generator=self.shared, device=device)
 
     def d_subsamples(self, n: int, n_exp: int, n_mb: int, mb: int,
                      device: torch.device):
         """GAIL's legacy d-step: (n_mb, mb) generator rows, each
         minibatch drawn without replacement from ``n``, and (n_mb, mb)
         expert rows drawn with replacement from ``n_exp``."""
-        g_idx = torch.argsort(torch.rand((n_mb, n), generator=self.generator,
+        g_idx = torch.argsort(torch.rand((n_mb, n), generator=self.shared,
                                          device=device), dim=1)[:, :mb]
-        e_idx = torch.randint(0, n_exp, (n_mb, mb), generator=self.generator,
+        e_idx = torch.randint(0, n_exp, (n_mb, mb), generator=self.shared,
                               device=device)
         return g_idx, e_idx
 
@@ -212,12 +230,15 @@ def _layers(leaves: list[torch.Tensor]) -> list[dict]:
 class TRPO:
     """Couples a batched env (``DPEnvV3`` or ``DPEnvV3Multi``), an
     ``MlpPolicy`` and the TRPO update.  The env's device is the
-    learner's."""
+    learner's.  ``group``: the ranks to average the update over (None: this
+    process alone)."""
 
-    def __init__(self, env, policy, config: TRPOConfig = TRPOConfig()):
+    def __init__(self, env, policy, config: TRPOConfig = TRPOConfig(),
+                 group=None):
         self.env = env
         self.policy = policy
         self.cfg = config
+        self.group = group
         self.device = env.device
         self._reset_fn = pick_reset_fn(env, config.reset_mode)
 
@@ -319,7 +340,7 @@ class TRPO:
         theta = th_before.clone().requires_grad_(True)
         lossbefore = losses_at(theta)
         g = torch.autograd.grad(lossbefore[0], theta)[0]
-        lossbefore = lossbefore.detach()
+        lossbefore, g = maybe_pmean([lossbefore.detach(), g], self.group)
         mask = None
         if self.policy.fixed_logstd is not None:
             # fixed exploration noise: logstd's coordinates (first in the
@@ -338,7 +359,7 @@ class TRPO:
         def fisher_vector_product(p):
             hvp = torch.autograd.grad(grad_kl, theta, grad_outputs=p,
                                       retain_graph=True)[0]
-            return hvp + cfg.cg_damping * p
+            return maybe_pmean(hvp, self.group) + cfg.cg_damping * p
 
         stepdir = cg(fisher_vector_product, g, cg_iters=cfg.cg_iters)
         if mask is not None:
@@ -354,7 +375,8 @@ class TRPO:
             zero_grad = torch.allclose(g, torch.zeros_like(g))
             stepsize, accepted = 1.0, False
             for _ in range(cfg.line_search_steps):
-                ml = losses_at(th_before + fullstep * stepsize)
+                ml = maybe_pmean(losses_at(th_before + fullstep * stepsize),
+                                 self.group)
                 ok = (torch.isfinite(ml).all() & (ml[1] <= cfg.max_kl * 1.5)
                       & (ml[0] - surrbefore > 0))
                 if bool(ok):
@@ -364,7 +386,7 @@ class TRPO:
             th_new = (th_before + fullstep * stepsize
                       if accepted and not zero_grad else th_before)
             new_params = with_pol(th_new)
-            meanlosses = losses_at(th_new)
+            meanlosses = maybe_pmean(losses_at(th_new), self.group)
         return new_params, meanlosses, SearchInfo(g, stepdir, stepsize,
                                                   accepted)
 
@@ -384,13 +406,14 @@ class TRPO:
             idx = perm[:nmb * bs].reshape(nmb, bs)
             mbobs, mbrets = ob[idx], tdlamret[idx]
             for k in range(nmb):
-                ob_rms = running_stats.update(ob_rms, mbobs[k])
+                ob_rms = running_stats.update(ob_rms, mbobs[k], self.group)
                 theta = vf_theta.requires_grad_(True)
                 p = {**params, "vf": _layers(_unflatten(theta, like)),
                      "ob_rms": ob_rms}
                 vpred = self.policy.value(p, mbobs[k])
                 loss = torch.mean(torch.square(vpred - mbrets[k]))
-                gvf = torch.autograd.grad(loss, theta)[0]
+                gvf = maybe_pmean(torch.autograd.grad(loss, theta)[0],
+                                  self.group)
                 with torch.no_grad():
                     vf_theta, vf_adam = adam.update(vf_adam, gvf,
                                                     vf_theta.detach(),
@@ -411,7 +434,7 @@ class TRPO:
         adv = adv.reshape(-1)
         tdlamret = tdlamret.reshape(-1)
         atarg = (adv - adv.mean()) / adv.std(correction=0)  # no ε
-        params = self.policy.update_ob_rms(params, ob)
+        params = self.policy.update_ob_rms(params, ob, self.group)
         params, meanlosses, info = self._policy_update(params, ob, ac, atarg)
         params, vf_adam = self._vf_update(params, vf_adam, ob, tdlamret,
                                           draws)

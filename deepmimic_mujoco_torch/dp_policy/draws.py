@@ -10,10 +10,15 @@ import torch
 
 
 class Draws:
-    """Draws from one ``torch.Generator`` on the device it lives on."""
+    """Draws on the device the generators live on: the rollout's and the
+    tests' from ``generator``, the train step's from ``shared`` (the same
+    generator unless one is given; across ranks, one seeded alike on every
+    rank)."""
 
-    def __init__(self, generator: torch.Generator):
+    def __init__(self, generator: torch.Generator,
+                 shared: torch.Generator | None = None):
         self.generator = generator
+        self.shared = generator if shared is None else shared
 
     def rollout_chunk(self, steps: int, n_envs: int, action_size: int,
                       device: torch.device):
@@ -39,7 +44,7 @@ class Draws:
         """(epochs·n_mb, size) record indices for the critic and for the
         actor, one row per minibatch step, drawn with replacement with the
         probabilities ``p_critic`` and ``p_actor``."""
-        g = self.generator
+        g = self.shared
         return tuple(torch.multinomial(p.expand(epochs * n_mb, -1), size,
                                        replacement=True, generator=g)
                      for p in (p_critic, p_actor))
@@ -48,6 +53,6 @@ class Draws:
                            device: torch.device) -> torch.Tensor:
         """(epochs, n): one permutation of the rows per epoch
         (``PPOAgent.update``)."""
-        return torch.stack([torch.randperm(n, generator=self.generator,
+        return torch.stack([torch.randperm(n, generator=self.shared,
                                            device=device)
                             for _ in range(epochs)])

@@ -3,9 +3,9 @@ normalizer.py``).
 
 Each dimension belongs to a group; NONE-group dimensions bypass
 normalization.  Updates fold a batch's (count, sum, sum of squares) into
-the running statistics.  JAX's ``axis_name`` psum over a device mesh and
-``check_synced`` are collectives of the multi-device stack and are not
-ported (ROADMAP.md, queue A, item 8)."""
+the running statistics; across ranks (``group``) those are summed over the
+group first, as JAX psums them over ``axis_name``, and ``check_synced``
+says whether every rank holds the same statistics."""
 
 from __future__ import annotations
 
@@ -15,6 +15,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from deepmimic_mujoco_torch.parallel.collectives import all_gather, maybe_psum
 
 
 class Groups:
@@ -48,8 +50,8 @@ def init(size: int, init_mean=None, init_std=None,
 
 def make(size: int, groups_ids=None, eps: float = 0.02,
          clip: float = math.inf) -> types.SimpleNamespace:
-    """A namespace of ``update``, ``normalize`` and ``unnormalize`` bound
-    to the group structure."""
+    """A namespace of ``update``, ``normalize``, ``unnormalize`` and
+    ``check_synced`` bound to the group structure."""
     if groups_ids is None:
         groups_ids = np.zeros(size, np.int32)
     groups_ids = np.asarray(groups_ids, np.int32)
@@ -63,9 +65,10 @@ def make(size: int, groups_ids=None, eps: float = 0.02,
         return active_on[like.device]
 
     def update(state: NormalizerState, batch: torch.Tensor,
-               weights: Optional[torch.Tensor] = None) -> NormalizerState:
+               weights: Optional[torch.Tensor] = None,
+               group=None) -> NormalizerState:
         """``weights`` (0/1 per row) leave padding rows out of the
-        statistics."""
+        statistics; ``group``: sum the batch statistics over its ranks."""
         batch = batch.reshape(-1, state.mean.shape[0])
         if weights is None:
             n = torch.tensor(float(batch.shape[0]), device=batch.device)
@@ -76,6 +79,7 @@ def make(size: int, groups_ids=None, eps: float = 0.02,
             n = torch.sum(w)
             s = torch.sum(batch * w, dim=0)
             sq = torch.sum(batch * batch * w, dim=0)
+        n, s, sq = maybe_psum([n, s, sq], group)
         tot = state.count + n
         new_mean = (state.mean * state.count + s) / tot
         new_mean_sq = (state.mean_sq * state.count + sq) / tot
@@ -95,6 +99,16 @@ def make(size: int, groups_ids=None, eps: float = 0.02,
     def unnormalize(state: NormalizerState, x: torch.Tensor) -> torch.Tensor:
         return torch.where(active(x), x * state.std + state.mean, x)
 
+    def check_synced(state: NormalizerState, group=None) -> bool:
+        """Every rank holds the statistics rank 0 holds (the sums of mean
+        and std within 1e-5); True without a group."""
+        if group is None:
+            return True
+        g = all_gather(torch.stack([torch.sum(state.mean),
+                                    torch.sum(state.std)]), group)
+        return bool(torch.all(torch.abs(g - g[0]) < 1e-5))
+
     return types.SimpleNamespace(update=update, normalize=normalize,
                                  unnormalize=unnormalize,
+                                 check_synced=check_synced,
                                  groups_ids=groups_ids)

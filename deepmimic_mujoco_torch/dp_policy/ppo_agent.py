@@ -16,8 +16,10 @@
 Parameters are a dict with JAX's keys and leaves (``io_utils/checkpoint``
 reads and writes them in JAX's layout).  The gradients come from
 ``torch.autograd``; the random draws from a :class:`~deepmimic_mujoco_torch.
-dp_policy.draws.Draws`.  JAX's ``axis_name`` gradient and statistics
-averaging across devices is not ported (ROADMAP.md, queue A, item 8)."""
+dp_policy.draws.Draws`.  Across ranks (``group``) the critic's and the
+actor's gradients and the mean losses are averaged over the group and the
+normalizers' sums summed, at JAX's ``axis_name`` points; the advantage
+statistics and the sample count stay the rank's own, as in JAX."""
 
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from deepmimic_mujoco_torch.dp_policy.draws import Draws
 from deepmimic_mujoco_torch.dp_policy.exp_params import ExpParams
 from deepmimic_mujoco_torch.dp_policy.nets import apply_relu_mlp, build_net
 from deepmimic_mujoco_torch.models.mlp import normc_init
+from deepmimic_mujoco_torch.parallel.collectives import maybe_pmean
 
 _LOG2PI = float(np.log(2.0 * np.pi))
 
@@ -84,9 +87,10 @@ def _with_grad(layers: list) -> list:
             for layer in layers]
 
 
-def _grads(loss: torch.Tensor, layers: list) -> list:
+def _grads(loss: torch.Tensor, layers: list, group=None) -> list:
+    """d loss / d layers, averaged over ``group``'s ranks where given."""
     leaves = [v for layer in layers for v in layer.values()]
-    g = iter(torch.autograd.grad(loss, leaves))
+    g = iter(maybe_pmean(list(torch.autograd.grad(loss, leaves)), group))
     return [{k: next(g) for k in layer} for layer in layers]
 
 
@@ -125,8 +129,9 @@ class PPOAgent:
                  reward_bounds: tuple = (0.0, 1.0),
                  state_norm_groups: Optional[np.ndarray] = None,
                  state_offset: Optional[np.ndarray] = None,
-                 state_scale: Optional[np.ndarray] = None):
+                 state_scale: Optional[np.ndarray] = None, group=None):
         self.spec = {**DEFAULT_SPEC, **(spec or {})}
+        self.group = group
         s = self.spec
         self.state_size = state_size
         self.action_size = action_size
@@ -340,7 +345,7 @@ class PPOAgent:
         s, _, _, _, tv = c_rows
         cl = self._critic_loss({**params, "critic": critic}, s, tv)
         critic, copt = momentum_update(
-            params["critic_opt"], _grads(cl, critic),
+            params["critic_opt"], _grads(cl, critic, self.group),
             [{k: v.detach() for k, v in layer.items()} for layer in critic],
             float(self.spec["CriticStepsize"]),
             float(self.spec["CriticMomentum"]))
@@ -348,7 +353,7 @@ class PPOAgent:
         s, a, lp, ad, _ = a_rows
         al, cf = self._actor_loss({**params, "actor": actor}, s, a, lp, ad)
         actor, aopt = momentum_update(
-            params["actor_opt"], _grads(al, actor),
+            params["actor_opt"], _grads(al, actor, self.group),
             [{k: v.detach() for k, v in layer.items()} for layer in actor],
             params["actor_stepsize"], float(self.spec["ActorMomentum"]))
         params = {**params, "critic": critic, "critic_opt": copt,
@@ -391,13 +396,16 @@ class PPOAgent:
                 params, cl, al, cf = self._minibatch_step(params, rows, rows)
                 closs, aloss, cfrac = closs + cl, aloss + al.abs(), cfrac + cf
         total = self.epochs * nmb
-        closs, aloss, cfrac = closs / total, aloss / total, cfrac / total
+        closs, aloss, cfrac = maybe_pmean(
+            [closs / total, aloss / total, cfrac / total], self.group)
         stepsize = self._adapt_stepsize(params["actor_stepsize"], cfrac)
         with torch.no_grad():
             params = {**params, "actor_stepsize": stepsize,
-                      "s_norm": self.s_norm.update(params["s_norm"], states),
+                      "s_norm": self.s_norm.update(params["s_norm"], states,
+                                                   group=self.group),
                       "val_norm": self.val_norm.update(params["val_norm"],
-                                                       new_vals[..., None]),
+                                                       new_vals[..., None],
+                                                       group=self.group),
                       "sample_count": params["sample_count"] + n}
         return params, {"critic_loss": closs, "actor_loss": aloss,
                         "clip_frac": cfrac, "actor_stepsize": stepsize}
@@ -461,16 +469,19 @@ class PPOAgent:
                 params, tuple(c[c_idx[k]] for c in cols),
                 tuple(c[a_idx[k]] for c in cols))
             closs, aloss, cfrac = closs + cl, aloss + al.abs(), cfrac + cf
-        closs, aloss, cfrac = closs / total, aloss / total, cfrac / total
+        closs, aloss, cfrac = maybe_pmean(
+            [closs / total, aloss / total, cfrac / total], self.group)
         stepsize = self._adapt_stepsize(params["actor_stepsize"], cfrac)
         with torch.no_grad():
             params = {
                 **params, "actor_stepsize": stepsize,
                 "s_norm": self.s_norm.update(params["s_norm"], states,
-                                             weights=valid.to(f32)),
+                                             weights=valid.to(f32),
+                                             group=self.group),
                 "val_norm": self.val_norm.update(params["val_norm"],
                                                  new_vals[..., None],
-                                                 weights=valid_w),
+                                                 weights=valid_w,
+                                                 group=self.group),
                 "sample_count": params["sample_count"] + torch.sum(valid_w)}
         return params, {"actor_loss": aloss, "actor_stepsize": stepsize,
                         "adv_mean": adv_mean, "adv_std": adv_std,

@@ -14,8 +14,9 @@
 
 The rollout runs on the env's device; path assembly and the ring live on
 the host, as in the original.  Every random draw goes through
-:class:`~deepmimic_mujoco_torch.dp_policy.draws.Draws`.  JAX's multi-host
-episode accounting is not ported (ROADMAP.md, queue A, item 8)."""
+:class:`~deepmimic_mujoco_torch.dp_policy.draws.Draws`.  Across ranks (the
+agent's ``group``) the test episodes' returns, lengths and counts are
+summed over the group before they are averaged."""
 
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from deepmimic_mujoco_torch.dp_policy.draws import Draws
 from deepmimic_mujoco_torch.dp_policy.path import Path, Terminate
 from deepmimic_mujoco_torch.dp_policy.ppo_agent import PPOAgent
 from deepmimic_mujoco_torch.dp_policy.replay_buffer import ReplayBuffer
+from deepmimic_mujoco_torch.parallel.collectives import maybe_psum
 
 
 class Mode:
@@ -196,7 +198,8 @@ class RLAgentDriver:
         its return and length stop; the loop ends once every episode has
         ended (JAX scans the whole horizon with the same result).  The
         per-episode returns and lengths stay in ``test_returns`` and
-        ``test_lengths``."""
+        ``test_lengths``; across ranks the averages are over every rank's
+        episodes."""
         env, agent = self.env, self.agent
         state = self.draws.test_starts(env.reset, n_episodes)
         alive = torch.ones(n_episodes, dtype=torch.bool, device=self.device)
@@ -213,5 +216,8 @@ class RLAgentDriver:
                 if not bool(alive.any()):
                     break
         self.test_returns, self.test_lengths = ret, length
-        return (float(torch.sum(ret)) / n_episodes,
-                float(torch.sum(length)) / n_episodes)
+        ret_sum, len_sum, count = (float(x) for x in maybe_psum(
+            torch.stack([torch.sum(ret), torch.sum(length).float(),
+                         torch.tensor(float(n_episodes), device=self.device)]),
+            agent.group))
+        return ret_sum / count, len_sum / count

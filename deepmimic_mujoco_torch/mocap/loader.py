@@ -1,6 +1,7 @@
-"""DeepMimic motion-clip conversion (numpy copy of the part of
-``deepmimic_mujoco_tpu/mocap/loader.py`` that ``load_clip("walk")`` runs:
-``load_npz`` → ``convert_frames`` → ``MocapClip.qpos_cont`` / ``qvel_fd``).
+"""DeepMimic motion-clip pipeline (numpy copy of ``deepmimic_mujoco_tpu/
+mocap/loader.py``): DeepMimic JSON clips (``{"Loop": ..., "Frames":
+[...]}``, in ``.txt`` or ``.json`` files) and the bundled ``.npz`` clips →
+``convert_frames`` → ``MocapClip`` with ``qpos_cont`` / ``qvel_fd``.
 
 Frames are ``[dt, root_pos3, root_quat4, <dp-order joint quats/scalars>]``;
 the output is the MuJoCo layout (qpos 35, qvel 34), in float64."""
@@ -8,6 +9,7 @@ the output is the MuJoCo layout (qpos 35, qvel 34), in float64."""
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 from typing import Optional
 
@@ -28,7 +30,10 @@ class MocapClip:
     """A converted motion clip (host numpy, float64).
 
     name, loop ("wrap" | "none"), dt (first frame's duration), durations (T,),
-    qpos (T, 35) and qvel (T, 34) in the reference's conversion semantics."""
+    qpos (T, 35) and qvel (T, 34) in the reference's conversion semantics;
+    quat_frames (T, 44): the aligned frames in MuJoCo joint order
+    [duration, root_pos3, root_quat4, per-joint quat4/scalar] (the
+    reference's ``MocapDM.data``); raw_frames (T, 44): the file's frames."""
 
     name: str
     loop: str
@@ -36,6 +41,8 @@ class MocapClip:
     durations: np.ndarray
     qpos: np.ndarray
     qvel: np.ndarray
+    quat_frames: np.ndarray
+    raw_frames: np.ndarray
     _qpos_cont: Optional[np.ndarray] = dataclasses.field(
         default=None, repr=False, compare=False)
     _qvel_fd: Optional[np.ndarray] = dataclasses.field(
@@ -158,12 +165,21 @@ def convert_frames(frames: np.ndarray, loop: str = "wrap",
     T = frames.shape[0]
     durations = frames[:, 0].copy()
     states = [_parse_frame(frames[k]) for k in range(T)]
+    quat_frames = np.full((T, frames.shape[1]), np.nan)
     qpos = np.zeros((T, NQ))
     qvel = np.zeros((T, NV))
     prev = None
     for k in range(T):
         st = states[k]
         dura = durations[k] if k == 0 else durations[k - 1]
+        quat_frames[k, 0] = dura
+        quat_frames[k, 1:4] = st["root_pos"]
+        quat_frames[k, 4:8] = st["root_rot"]
+        off_q = 8
+        for joint in BODY_JOINTS:
+            n = 1 if DOF_DEF[joint] == 1 else 4
+            quat_frames[k, off_q:off_q + n] = st[joint]
+            off_q += n
         qpos[k, 0:3] = st["root_pos"]
         qpos[k, 3:7] = st["root_rot"]
         if k > 0:
@@ -187,7 +203,20 @@ def convert_frames(frames: np.ndarray, loop: str = "wrap",
                 off_v += 3
         prev = st
     return MocapClip(name=name, loop=loop, dt=float(durations[0]),
-                     durations=durations, qpos=qpos, qvel=qvel)
+                     durations=durations, qpos=qpos, qvel=qvel,
+                     quat_frames=quat_frames, raw_frames=frames)
+
+
+def load_deepmimic_json(path: str, name: Optional[str] = None) -> MocapClip:
+    """A DeepMimic JSON clip (``Frames`` and ``Loop``, which defaults to
+    "wrap"); ``name`` defaults to the file's base name."""
+    with open(path, "r") as fin:
+        data = json.load(fin)
+    frames = np.asarray(data["Frames"], dtype=np.float64)
+    loop = str(data.get("Loop", "wrap"))
+    if name is None:
+        name = os.path.splitext(os.path.basename(path))[0]
+    return convert_frames(frames, loop=loop, name=name)
 
 
 def load_npz(path: str) -> MocapClip:
@@ -200,8 +229,11 @@ def load_npz(path: str) -> MocapClip:
 
 
 def load_clip(path_or_name: str) -> MocapClip:
-    """Load by ``.npz`` path or by bundled clip name."""
+    """Load by file path (a ``.npz`` bundle, or any other file as DeepMimic
+    JSON: ``.txt`` and ``.json``) or by bundled clip name."""
     if os.path.exists(path_or_name):
-        return load_npz(path_or_name)
+        if path_or_name.endswith(".npz"):
+            return load_npz(path_or_name)
+        return load_deepmimic_json(path_or_name)
     from deepmimic_mujoco_torch.mocap.registry import get_clip
     return get_clip(path_or_name)

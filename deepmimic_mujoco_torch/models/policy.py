@@ -92,6 +92,9 @@ class MlpPolicy:
         m1, s1 = self.mean_logstd(params_new, ob)
         return distributions.diag_gaussian.kl(m0, s0, m1, s1)
 
-    def update_ob_rms(self, params: dict, obs: torch.Tensor) -> dict:
+    def update_ob_rms(self, params: dict, obs: torch.Tensor,
+                      group=None) -> dict:
+        """``params`` with ob_rms updated from ``obs`` (summed over
+        ``group``'s ranks where given)."""
         return {**params, "ob_rms": running_stats.update(params["ob_rms"],
-                                                         obs)}
+                                                         obs, group)}

@@ -3,7 +3,8 @@ plain PyTorch version, and the main path on CUDA against the CPU (the
 walk, the recipe, the multi-clip env, the learners, the original
 DeepMimic PPO stack's surface and train step, the other envs: DPEnvV1,
 DPEnvV2, HumanoidTestEnv, VecNormalize and the facade, and the
-physics-fidelity modes with the imported models).
+physics-fidelity modes with the imported models, and data-parallel
+training: gloo ranks on the card, NCCL at world 1).
 
 Imports no JAX (the card's machine has none), so it runs there without the
 repository's conftest:
@@ -857,3 +858,56 @@ def test_imported_models_and_calibration_on_the_card(cuda):
     rec = chip_smoke._imported_models(torch)
     assert rec["calibrate_humanoid"] == "ns"
     assert rec["mjcf"]["max_abs_diff"] <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# data-parallel training across processes (slice 11)
+
+
+def test_gloo_collectives_on_cuda_tensors_at_world_2(cuda):
+    """Two gloo ranks on the card (the one-card machine's two-rank
+    backend: NCCL refuses two ranks on one card): ``maybe_pmean``,
+    ``maybe_psum``, ``all_gather``, ``share_bytes`` and ``sync_check``
+    as on the CPU, the results on the card."""
+    from deepmimic_mujoco_torch.parallel import mesh
+    from tests import torch_dist_workers as W
+
+    ranks = mesh.launch(W.collectives_cuda_rank, 2, "gloo", device="cuda",
+                        timeout=300)
+    for out in ranks:
+        assert out["devices"] == ["cuda"] * 3
+        assert out["mean"][0].tolist() == [1.5] * 3
+        assert out["sum"] == 3.0
+        assert out["gathered"].tolist() == [[0.0], [1.0]]
+        assert out["blob"] == b"ckpt\x00\x01payload"
+        assert out["same"] is True and out["planted"] is False
+
+
+def test_nccl_at_world_1_leaves_a_trpo_iteration_alone(cuda):
+    """One NCCL rank spawned, ``TRPO.iteration`` at 64 envs x 8 steps: the
+    same params as the iteration in this process within 1e-6, 4
+    ``apgd_solve`` launches per env step, ``sync_check`` true."""
+    from deepmimic_mujoco_torch.parallel import dryrun, mesh
+
+    [one] = mesh.launch(dryrun.trpo_rank, 1, "nccl", args=("cuda", 64, 8),
+                        device="cuda", timeout=300)
+    local = dryrun.run_trpo(None, 0, 1, "cuda", 64, 8)
+    d = float((one["flat"] - local["flat"]).abs().max())
+    assert d <= 1e-6 * max(1.0, float(local["flat"].abs().max())), d
+    assert one["synced"] and one["launches"]["apgd_solve"] == 32
+    assert local["launches"] == one["launches"]
+
+
+def test_dryrun_on_two_gloo_ranks_on_the_card(cuda):
+    """``python -m deepmimic_mujoco_torch.parallel.dryrun --nproc 2
+    --device cuda --backend gloo``."""
+    import subprocess
+    import sys
+
+    res = subprocess.run(
+        [sys.executable, "-m", "deepmimic_mujoco_torch.parallel.dryrun",
+         "--nproc", "2", "--device", "cuda", "--backend", "gloo"],
+        capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().splitlines()[-1].startswith(
+        "dryrun_multichip(2): OK")
