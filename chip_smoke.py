@@ -47,12 +47,13 @@ Phases, each printing its lines before the last:
    ``_apgd_scan`` not called), held against the same rollouts on the
    CPU;
 4. main path — ``cli.train_trpo --task evaluate`` of the bundled walk
-   checkpoint at 4096 envs × 200 steps (blocks layout) and 768 × 50 (both
+   checkpoint at 4096 envs × 100 steps (blocks layout) and 768 × 50 (both
    layouts),
    with the launch counts set to 0 just before each run and read just after,
    before any profiler session; then [train], also before any profiler
-   session: ``TRPO.iteration`` at 768 envs × 16 steps (one warm-up, one
-   timed: the process's first training) and at 4096 × 64, g_step 1
+   session: ``TRPO.iteration`` at 768 envs × 16 steps (one iteration,
+   the process's first training, its set-up included) and at 4096 × 64,
+   g_step 1
    (bench.py's configuration; one iteration), the counts set to 0 just
    before the timed one: env-steps/s, the time
    of the rollout, the policy update and the vf epochs, APGD launches per
@@ -80,7 +81,7 @@ Phases, each printing its lines before the last:
    lane within 0.03 reward per step and 5% EpLen of the port's CPU figures,
    8 ``apgd_solve`` launches per control step for the whole lane batch),
    one timed ``LaneTRPO.iteration`` of its 5 lanes x 160 envs resumed from
-   it and one of 15 fresh lanes x 64 envs (horizon 32, g_step 1), and one
+   it (the lane learner's set-up included) and one of 15 fresh lanes x 64 envs (horizon 32, g_step 1), and one
    lane-batched segment update of 3 lanes on the card against the CPU; then
    [gail], GAIL from the bundled r4 run (``train_ckpt_gail_r4``: the recipe
    with the full obs, a tanh 100x2 policy with a learned logstd, its
@@ -88,7 +89,7 @@ Phases, each printing its lines before the last:
    policy over 64 RSI episodes x 300 steps from fixed frames (within 0.03
    reward per step and 5% EpLen of the port's CPU figure, 8 ``apgd_solve``
    launches per control step), one timed ``GAIL.iteration`` resumed from
-   its whole state at 64 envs x 32 steps x g_step 3 (env-steps/s, the
+   its whole state at 64 envs x 16 steps x g_step 3 (env-steps/s, the
    rollout, policy update, vf epochs and d-step seconds, DLoss, GenAcc,
    ExpertAcc, EpTrueRewMean, meankl ≤ 1.5·max_kl, 8 launches per control
    step), one d-step and segment update on the card against the CPU, and
@@ -140,10 +141,10 @@ Phases, each printing its lines before the last:
    windows
    of one env step's
    four solves through ``apgd()`` (blocks: four kernels and nothing else),
-   and ``torch.profiler`` windows of 5 env steps at 4096 envs and of 3
+   and ``torch.profiler`` windows of 5 env steps at 4096 envs and of 2
    recipe steps at 4096 envs (step time, device busy share, kernel
    launches per step, the solve's device time and launches per step, top
-   kernels), and of 2 steps of PGS and of the imported model (all of it
+   kernels), and of 1 step of PGS and of the imported model (all of it
    after [dist] and [mocap-ingest], below); then
    16-env, 20-step rollouts on the card, of the walk
    evaluation and of the recipe, held against the same rollouts on the CPU
@@ -155,6 +156,19 @@ Phases, each printing its lines before the last:
    [mocap-ingest]: every bundled clip as DeepMimic JSON through the Python
    and the native loaders, and walk_r2 on the recipe from the JSON walk
    clip against the bundled one (:func:`mocap_ingest_phase`);
+   [observability] (slice 12), in four parts: (a) the [train] CLI runs
+   under ``DMTPU_LOG_FORMAT=stdout,log,csv,json,tensorboard`` and its
+   ``progress.csv``, ``progress.json`` and tensorboard scalars must agree
+   (:func:`log_formats_agree`); (b) the walk window of [profile] opens
+   through ``utils/profiling.device_trace`` and ``cli.trace_summary`` of
+   its trace must count the APGD launches the wrappers counted and the
+   device time of ``key_averages()`` within 1%; (c) ``cli.profile_trace
+   --num-envs 768 --horizon 8 --iters 1`` with the profiler sessions and
+   its summary, with the same two checks against the profile the tool
+   returns (:func:`profile_trace_run`); (d) the rollouts of
+   ``cli.render_policy`` and ``cli.render_vmapped``, 30 control steps on
+   the card against the CPU, before any profiler session
+   (:func:`render_rollouts`);
 5. one JSON line with every kernel's numbers (with the registers, spills
    and shared memory of the instantiation the main path runs, and ptxas's
    figures for every instantiation), then the result line.
@@ -166,6 +180,7 @@ Without CUDA the run stops before any phase.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import re
@@ -179,7 +194,7 @@ SEED = 0
 NC, NL = 8, 8
 NE = 3 * NC + NL
 B_MAIN = 4096
-HORIZON = 200
+HORIZON = 100                # the 4096-env evaluation: the CLI's 1024, cut
 HORIZON_768 = 50             # the 768-env evaluations: 200, cut
 ATOL = 1e-4          # TestAPGD's tolerance: the sums run in another order
 ROLLOUT_ATOL = 1e-3  # 20 physics steps, card (kernel) vs CPU (plain)
@@ -263,7 +278,7 @@ GAIL_FLAGS = ["--expert-path", EXPERT, "--motion", "walk", "--reward-mode",
               "imitation_dm", "--control-mode", "pd_residual", "--reset-mode",
               "rsi", "--n-substeps", "2", "--max-episode-steps", "300",
               "--obs-mode", "full"]
-GAIL_TRAIN_HORIZON = 32      # the run's 1024, cut
+GAIL_TRAIN_HORIZON = 16      # the run's 1024, cut
 GAIL_BC_ITERS = 50           # the CLI's BC steps in the smoke (of 10,000)
 # the 64 start frames that JAX's runner.evaluate draws from PRNGKey(0)
 GAIL_FRAMES = ("9,28,25,11,24,0,27,28,18,29,21,33,11,37,4,35,4,10,5,14,33,26,"
@@ -331,14 +346,25 @@ ENV_DONE_AT.update({case: (0.7, 2.0) for case in MODE_CASES})
 # [dist] (slice 11): TRPO across ranks
 DIST_ENVS = B_MAIN           # bench.py's width, in total over the ranks
 DIST_HORIZON = 16            # bench.py's 64, cut
+DIST_NCCL_HORIZON = 8        # NCCL at world 1: bench.py's 64, cut
 DIST_CVC_ENVS = 16           # per rank: the card-vs-CPU segment update
 DIST_EXACT = 1e-6            # NCCL world 1 against one process; replicas
 DIST_ONE_PROCESS = 1e-3      # 2 ranks against 1 process on the same segment
 # [mocap-ingest] (slice 11)
 INGEST_ATOL = 1e-12          # the f64 arrays of the JSON and native loaders
-INGEST_STEPS = 32
+INGEST_STEPS = 16            # the recipe's 300, cut
 CPU_TORQUE_TEST = 0.0265
 CPU_PLAY_MOCAP = 0.2112
+
+# [observability] (slice 12): the logger's formats under the [train] CLI,
+# the traced walk window, cli.profile_trace, and the render rollouts
+OBS_LOG_FORMAT = "stdout,log,csv,json,tensorboard"
+OBS_REL = 1e-6               # csv, json and tensorboard values agree
+TRACE_BUSY_REL = 0.01        # the trace's busy time against key_averages()
+PROFILE_TRACE_ARGV = ["--num-envs", "768", "--horizon", "8", "--iters", "1"]
+RENDER_STEPS = 30            # the render tools' rollouts: their 300, cut
+RENDER_ATOL = 1e-3           # card vs CPU qpos, of max(1, |x|)
+RENDER_LANE = "spinkick"     # the imit5_r5b lane render_vmapped rolls
 
 
 def dp_frames(n: int = DP_ENVS):
@@ -601,11 +627,12 @@ def _timed(fn, acc: dict, key: str):
 
 
 def _train(torch, ops, n_envs: int, kind: str = "walk",
-           horizon: int | None = None, warm_up: bool = False) -> dict:
+           horizon: int | None = None, first: bool = False) -> dict:
     """[train] ``TRPO.iteration`` at ``n_envs`` envs x ``horizon`` steps
     (64 by default: bench.py's configuration), g_step 1, from random
-    params: one timed iteration (after a warm-up one with ``warm_up``: the
-    first training run of the process), with the launch counts set to 0
+    params: one timed iteration (``first``: the process's first training,
+    whose set-up is in the timed iteration and its env-steps/s, so that
+    figure is labelled "set-up included"), with the launch counts set to 0
     just before it and read just after; the plain ``_apgd_scan`` must not
     be called.  Phase times are wall time between synchronizations
     around the rollout, the policy update (gradient, CG, line search) and
@@ -653,10 +680,6 @@ def _train(torch, ops, n_envs: int, kind: str = "walk",
         lens.extend(int(x) for x in ended[ended > 0].cpu())
         return state, stats
 
-    if warm_up:
-        state, _ = iterate(state)
-        for k in phase:
-            phase[k] = 0.0
     with _watch(torch, ops) as w:
         state, stats = iterate(state)
     dt, n, scans = w["seconds"], w["launches"], w["scans"]
@@ -664,6 +687,7 @@ def _train(torch, ops, n_envs: int, kind: str = "walk",
         "meankl", "surrgain", "ev_tdlam_before", "optimgain", "entropy")}
     rec["EpLenMean"] = sum(lens) / len(lens) if lens else float("nan")
     rec.update(env_steps_per_s=n_envs * horizon / dt, iteration_s=dt,
+               setup_included=first,
                phase_s=dict(phase),
                apgd_launches_per_env_step=n["apgd_solve"] / horizon,
                launches=n)
@@ -675,9 +699,8 @@ def _train(torch, ops, n_envs: int, kind: str = "walk",
     rec["env"]["dt"] = env.model.dt
     rec["apgd_scan_calls"] = len(scans)
     print(f"{tag} TRPO.iteration {n_envs} envs x {horizon} steps, "
-          f"g_step 1, " + ("1 timed after 1 warm-up" if warm_up else
-                           "1 iteration") + ": "
-          f"{rec['env_steps_per_s']:.1f} env-steps/s, "
+          f"g_step 1, 1 iteration: {rec['env_steps_per_s']:.1f} env-steps/s"
+          + (" (set-up included)" if first else "") + ", "
           f"{rec['iteration_s']:.3f} s per iteration ("
           + ", ".join(f"{k} {v:.3f} s" for k, v in rec["phase_s"].items())
           + f"); APGD launches per env step "
@@ -776,11 +799,93 @@ def _segment_card_vs_cpu(torch) -> dict:
     return d
 
 
-def _train_cli(recipe: bool = False) -> None:
+@contextlib.contextmanager
+def _env_var(name: str, value: str | None):
+    """``os.environ[name]`` set to ``value`` (left alone when None) inside
+    the block, restored after it."""
+    old = os.environ.get(name)
+    if value is not None:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if value is not None:
+            if old is None:
+                del os.environ[name]
+            else:
+                os.environ[name] = old
+
+
+def _tb_rows(tb_dir: str) -> tuple:
+    """(rows, how) of the logger's ``tensorboard`` format under ``tb_dir``:
+    one {key: value} per step, read the way it was stored, the JSONL
+    fallback of ``utils/statistics.Stats`` where ``tensorboard`` is not
+    installed (how "jsonl"), else the event files' ``simple_value``
+    scalars ("events")."""
+    import glob
+
+    rows = {}
+    jsonl = glob.glob(os.path.join(tb_dir, "*", "stats.jsonl"))
+    if jsonl:
+        with open(jsonl[0]) as fh:
+            for line in fh:
+                rec = json.loads(line)
+                rows[rec.pop("step")] = rec
+    else:
+        from tensorboard.backend.event_processing import event_accumulator
+
+        for run in sorted(glob.glob(os.path.join(tb_dir, "*"))):
+            acc = event_accumulator.EventAccumulator(run)
+            acc.Reload()
+            for tag in acc.Tags()["scalars"]:
+                for ev in acc.Scalars(tag):
+                    rows.setdefault(ev.step, {})[tag] = ev.value
+    return [rows[k] for k in sorted(rows)], "jsonl" if jsonl else "events"
+
+
+def log_formats_agree(logdir: str, n_rows: int) -> dict:
+    """[observability] (a): ``progress.csv``, ``progress.json`` and the
+    ``tensorboard`` scalars under a training run's log directory hold
+    ``n_rows`` rows each and the same finite values key by key (relative
+    ``OBS_REL``); the tensorboard rows hold exactly the finite ones."""
+    import math
+
+    with open(os.path.join(logdir, "progress.csv")) as fh:
+        lines = fh.read().strip().splitlines()
+    csv_rows = [dict(zip(lines[0].split(","), line.split(",")))
+                for line in lines[1:]]
+    with open(os.path.join(logdir, "progress.json")) as fh:
+        json_rows = [json.loads(line) for line in fh if line.strip()]
+    tb_rows, how = _tb_rows(os.path.join(logdir, "tb"))
+    if not len(csv_rows) == len(json_rows) == len(tb_rows) == n_rows:
+        raise AssertionError(
+            f"[observability] rows: csv {len(csv_rows)}, json "
+            f"{len(json_rows)}, tensorboard {len(tb_rows)}; expected {n_rows}")
+    worst, n_keys = 0.0, 0
+    for c, j, t in zip(csv_rows, json_rows, tb_rows):
+        finite = {k: float(v) for k, v in c.items()
+                  if v and math.isfinite(float(v))}
+        if sorted(t) != sorted(finite):
+            raise AssertionError(f"[observability] tensorboard keys {sorted(t)}"
+                                 f", csv's finite keys {sorted(finite)}")
+        for k, v in finite.items():
+            for other in (float(j[k]), float(t[k])):
+                worst = max(worst, abs(other - v) / max(abs(v), 1e-30))
+        n_keys += len(finite)
+    if not worst <= OBS_REL:
+        raise AssertionError(f"[observability] the formats part: {worst}")
+    return {"rows": n_rows, "finite_keys": n_keys, "max_rel_diff": worst,
+            "tensorboard": how}
+
+
+def _train_cli(recipe: bool = False) -> dict | None:
     """[train] ``cli.train_trpo --task train --num-iters 1`` in-process at
-    64 envs (64 steps, g_step 1) into a temporary directory; the checkpoint
-    it writes reads back through ``load_trpo_params``.  ``recipe``:
-    [imitation], the imitation recipe's flags at 32 steps."""
+    64 envs (64 steps, g_step 1) into a temporary directory, under
+    ``DMTPU_LOG_FORMAT=stdout,log,csv,json,tensorboard``; the checkpoint
+    it writes reads back through ``load_trpo_params``, and the log's
+    formats agree ([observability] (a), :func:`log_formats_agree`).
+    ``recipe``: [imitation], the imitation recipe's flags at 32 steps, in
+    the default formats."""
     import tempfile
 
     import torch
@@ -796,14 +901,16 @@ def _train_cli(recipe: bool = False) -> None:
     else:
         tag, horizon = "[train]", TRAIN_HORIZON
         flags, policy = [], MlpPolicy(56, 28)
+    formats = None
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        _quiet(train_trpo.main, [
-            "--task", "train", "--num-iters", "1", "--num-envs", "64",
-            "--timesteps-per-batch", str(horizon), "--g-step", "1",
-            "--seed", str(SEED), *flags, "--log-dir",
-            os.path.join(tmp, "logs"), "--checkpoint-dir",
-            os.path.join(tmp, "ckpt")])
+        with _env_var("DMTPU_LOG_FORMAT", None if recipe else OBS_LOG_FORMAT):
+            _quiet(train_trpo.main, [
+                "--task", "train", "--num-iters", "1", "--num-envs", "64",
+                "--timesteps-per-batch", str(horizon), "--g-step", "1",
+                "--seed", str(SEED), *flags, "--log-dir",
+                os.path.join(tmp, "logs"), "--checkpoint-dir",
+                os.path.join(tmp, "ckpt")])
         dt = time.perf_counter() - t0
         run = os.path.join("DPEnvV3", "trpo-walk-0")
         with open(os.path.join(tmp, "logs", run, "progress.csv")) as fh:
@@ -821,6 +928,16 @@ def _train_cli(recipe: bool = False) -> None:
               f"load_trpo_params, finite {finite}")
         if len(rows) != 2 or not finite:
             raise AssertionError(f"{tag} the CLI's log or checkpoint is off")
+        if not recipe:
+            formats = log_formats_agree(os.path.join(tmp, "logs", run), 1)
+            print(f"[observability] (a) the [train] CLI under "
+                  f"DMTPU_LOG_FORMAT={OBS_LOG_FORMAT}: progress.csv, "
+                  f"progress.json and the tensorboard scalars "
+                  f"({formats['tensorboard']}) agree on "
+                  f"{formats['finite_keys']} finite values in "
+                  f"{formats['rows']} row(s), max relative difference "
+                  f"{formats['max_rel_diff']:.3e} (bound {OBS_REL})")
+    return formats
 
 
 def _imitation_eval(torch, ops, train_trpo) -> dict:
@@ -1071,9 +1188,11 @@ def _lane_eval(torch, ops, tmp: str) -> dict:
 def _lane_train(torch, ops, resumed: bool) -> dict:
     """[trpo-lanes] ``LaneTRPO.iteration`` of the lane tool's learner on
     the card.  ``resumed``: the run's own 5 lanes x 160 envs resumed from
-    imit5_r5b, one warm-up and one timed iteration; else 15 fresh lanes x
-    64 envs (the tool's default width), one iteration.  Horizon cut to 32
-    (the tool's 256) and g_step to 1 (3).  env-steps/s summed over lanes,
+    imit5_r5b, one iteration, the lane learner's first in the process, so
+    its set-up is in the timed iteration and its env-steps/s ("set-up
+    included"); else 15 fresh lanes x 64 envs (the tool's
+    default width), one iteration.  Horizon cut to 32 (the tool's 256) and
+    g_step to 1 (3).  env-steps/s summed over lanes,
     the phase times, per-lane meankl (finite, ≤ 1.5·max_kl), every
     parameter finite, 8 ``apgd_solve`` launches per control step."""
     from deepmimic_mujoco_torch.algos import lanes
@@ -1093,10 +1212,6 @@ def _lane_train(torch, ops, resumed: bool) -> dict:
     learner._policy_update = _timed(learner._policy_update, phase,
                                     "policy update")
     learner._vf_update = _timed(learner._vf_update, phase, "vf epochs")
-    if resumed:
-        state, _ = learner.iteration(state)  # warm-up
-        for k in phase:
-            phase[k] = 0.0
     _zero_counts(ops)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1113,13 +1228,14 @@ def _lane_train(torch, ops, resumed: bool) -> dict:
         stats)
     rec = {"lanes": L, "envs_per_lane": E, "horizon": T,
            "env_steps_per_s": L * E * T / dt, "iteration_s": dt,
+           "setup_included": resumed,
            "phase_s": dict(phase), "meankl": kl, "finite": finite,
            "apgd_launches_per_control_step": n["apgd_solve"] / T,
            "launches": n}
     print(f"[trpo-lanes] LaneTRPO.iteration {tag}: {L} lanes x {E} envs x "
           f"{T} steps (horizon cut from 256), g_step 1 (cut from 3)"
-          + (", 1 timed after 1 warm-up" if resumed else ", 1 iteration")
-          + f": {rec['env_steps_per_s']:.1f} env-steps/s summed over lanes, "
+          + f", 1 iteration: {rec['env_steps_per_s']:.1f} env-steps/s summed "
+          f"over lanes" + (" (set-up included)" if resumed else "") + ", "
           f"{dt:.3f} s (" + ", ".join(f"{k} {v:.3f} s"
                                       for k, v in phase.items())
           + f"); meankl per lane {[round(x, 5) for x in kl]}; every "
@@ -1441,7 +1557,7 @@ def _gail_card_vs_cpu(torch) -> dict:
 
 def _gail_cli(torch, tmp: str) -> dict:
     """[gail] ``cli.train_gail`` in-process with the r4 run's flags at 64
-    envs x 32 steps, BC pretraining of ``GAIL_BC_ITERS`` steps, 1
+    envs x 16 steps, BC pretraining of ``GAIL_BC_ITERS`` steps, 1
     iteration, in ``tmp``:
     the BC loss goes down, the tabular keys are logged, and
     ``gail_state.npz`` reads back through ``load_gail_state``."""
@@ -2670,8 +2786,10 @@ def physics_modes_phase(torch, ops) -> dict:
     return rec
 
 
+@functools.lru_cache(maxsize=1)
 def _smi() -> str:
-    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    """The card's name and power limit, as ``nvidia-smi`` prints them (read
+    once: every [observability] time is printed beside it)."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -2681,7 +2799,7 @@ def _smi() -> str:
 def dist_phase(torch) -> dict:
     """[dist] data-parallel TRPO across processes (``parallel/``, slice
     11): one NCCL rank spawned (``init_process_group("nccl",
-    world_size=1)``) running ``TRPO.iteration`` at 4096 envs x 16 steps,
+    world_size=1)``) running ``TRPO.iteration`` at 4096 envs x 8 steps,
     against the same iteration (the same draws) in this process within
     1e-6; two gloo ranks on the one card at 4096 envs in total (2048 each)
     x 16 steps, g_step 1: the replicas within 1e-6 and ``sync_check``
@@ -2704,9 +2822,10 @@ def dist_phase(torch) -> dict:
     # 1. NCCL at world 1 against this process
     t0 = time.perf_counter()
     [one] = mesh.launch(dryrun.trpo_rank, 1, "nccl",
-                        args=("cuda", DIST_ENVS, DIST_HORIZON),
+                        args=("cuda", DIST_ENVS, DIST_NCCL_HORIZON),
                         device="cuda", timeout=600)
-    local = dryrun.run_trpo(None, 0, 1, "cuda", DIST_ENVS, DIST_HORIZON)
+    local = dryrun.run_trpo(None, 0, 1, "cuda", DIST_ENVS,
+                            DIST_NCCL_HORIZON)
     d_one = _rel(one["flat"], local["flat"])
     rec["nccl_world1"] = {
         "max_rel_diff": d_one, "seconds": one["seconds"],
@@ -2714,13 +2833,14 @@ def dist_phase(torch) -> dict:
         "collective_s": one["collective_s"], "launches": one["launches"],
         "launch_s": time.perf_counter() - t0}
     print(f"[dist] NCCL world 1: TRPO.iteration {DIST_ENVS} envs x "
-          f"{DIST_HORIZON} steps in a spawned rank against the same "
+          f"{DIST_NCCL_HORIZON} steps in a spawned rank against the same "
           f"iteration in this process: params max diff / max(1, max|x|) "
           f"{d_one:.3e} (bound {DIST_EXACT}); {one['seconds']:.3f} s, "
           f"{one['collectives']} collectives ({one['collective_s']:.3f} s); "
           f"launches {one['launches']}; {card}")
     if not (d_one <= DIST_EXACT and one["synced"]
-            and one["launches"] == per_rank == local["launches"]):
+            and one["launches"] == {**per_rank, "apgd_solve": 4 *
+                                    DIST_NCCL_HORIZON} == local["launches"]):
         raise AssertionError(f"[dist] NCCL world 1: {rec['nccl_world1']}, "
                              f"in-process launches {local['launches']}")
     # 2. two gloo ranks on the one card, the full width in total, and the
@@ -2831,7 +2951,7 @@ def mocap_ingest_phase(torch, ops) -> dict:
     raw frames and loop written as DeepMimic JSON, loaded by
     ``load_deepmimic_json`` and by ``load_clip_native`` (the C++ library
     built here with g++), both held against ``load_npz`` within 1e-12 (f64);
-    then the bundled ``walk_r2`` policy on the recipe at 4096 envs x 32
+    then the bundled ``walk_r2`` policy on the recipe at 4096 envs x 16
     steps with ``DPEnvV3(clip=<walk.json>)`` and with ``clip="walk"``
     (counted runs): states and rewards exactly equal."""
     import tempfile
@@ -2908,20 +3028,69 @@ def mocap_ingest_phase(torch, ops) -> dict:
     return rec
 
 
+def _trace_check(torch, trace_dir: str, apgd_launches: int,
+                 busy_us: float, tag: str) -> dict:
+    """[observability] (b) and (c): ``cli.trace_summary`` of the newest
+    trace under ``trace_dir``; its ``apgd`` category must count the
+    launches the wrappers counted in the window, and its busy time must be
+    the window's CUDA self time from ``key_averages()`` (``busy_us``)
+    within ``TRACE_BUSY_REL``."""
+    from deepmimic_mujoco_torch.cli import trace_summary
+
+    t0 = time.perf_counter()
+    summary = trace_summary.summarize(trace_summary.find_trace(trace_dir))
+    counts = summary["by_category_count"]
+    rec = {"n_events": summary["n_events"], "busy_ms": summary["busy_ms"],
+           "span_ms": summary["span_ms"],
+           "by_category_ms": summary["by_category_ms"],
+           "by_category_count": counts,
+           "apgd_trace": counts.get("apgd", 0), "apgd_counted": apgd_launches,
+           "device_tracks": summary["device_tracks"],
+           "trace_mb": os.path.getsize(trace_summary.find_trace(trace_dir))
+           / 2 ** 20, "summary_s": time.perf_counter() - t0}
+    rec["busy_ms_key_averages"] = busy_us / 1e3
+    rec["busy_rel_diff"] = (abs(summary["busy_ms"] - busy_us / 1e3)
+                            / max(busy_us / 1e3, 1e-9))
+    ok = (rec["apgd_trace"] == apgd_launches and summary["n_events"] > 0
+          and rec["busy_rel_diff"] <= TRACE_BUSY_REL)
+    top = list(summary["by_category_ms"].items())[:4]
+    print(f"{tag} cli.trace_summary ({rec['trace_mb']:.1f} MB trace, "
+          f"{rec['summary_s']:.1f} s): {summary['n_events']} device events "
+          f"on {summary['device_tracks']}, busy {summary['busy_ms']} ms"
+          + f" (key_averages {busy_us / 1e3:.2f} ms, relative difference "
+          f"{rec['busy_rel_diff']:.2e}, bound {TRACE_BUSY_REL})"
+          f"; apgd kernels {rec['apgd_trace']}, counted by the wrappers "
+          f"{apgd_launches}; top categories "
+          + ", ".join(f"{k} {v} ms x{counts.get(k, 0)}" for k, v in top)
+          + f" ({_smi()})")
+    if not ok:
+        raise AssertionError(f"{tag} the trace disagrees: {rec}")
+    return rec
+
+
 def _profile(torch, runner, env, policy, params, state, steps: int,
-             tag: str) -> dict:
+             tag: str, ops=None, trace_dir: str | None = None) -> dict:
     """A ``torch.profiler`` window of ``steps`` env steps (after 2 warm-up
     steps): step time, device busy share, kernel launches per step, the
-    APGD kernel's share, top device kernels."""
+    APGD kernel's share, top device kernels.  With ``trace_dir`` the
+    window opens through ``utils/profiling.device_trace``, which exports
+    its chrome trace there, and :func:`_trace_check` holds the trace's
+    summary against the window ([observability] (b))."""
+    from deepmimic_mujoco_torch.utils.profiling import device_trace
+
     runner.rollout(env, policy, params, state, 2)  # warm-up
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    window = (torch.profiler.profile(activities=acts) if trace_dir is None
+              else device_trace(trace_dir))
+    n0 = sum(_counts(ops).values()) if ops is not None else 0
+    with window as prof:
         t0 = time.perf_counter()
         runner.rollout(env, policy, params, state, steps)
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
+    n_apgd = sum(_counts(ops).values()) - n0 if ops is not None else None
     rows = [(getattr(e, "self_device_time_total", 0.0), e.count, e.key)
             for e in prof.key_averages()
             if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
@@ -2945,10 +3114,108 @@ def _profile(torch, runner, env, policy, params, state, steps: int,
         busy = "device time not measured (the profiler showed no kernels)"
     print(f"{tag} {steps} env steps at {state.qpos.shape[0]} envs: "
           f"{window_us / ms:.2f} ms per step, {busy}")
-    return {"step_ms": window_us / ms, "busy_ms": busy_us / ms,
-            "busy_share": busy_us / window_us,
-            "launches_per_step": launches_per_step,
-            "apgd_ms": apgd_us / ms, "apgd_launches_per_step": apgd_n}
+    rec = {"step_ms": window_us / ms, "busy_ms": busy_us / ms,
+           "busy_share": busy_us / window_us,
+           "launches_per_step": launches_per_step,
+           "apgd_ms": apgd_us / ms, "apgd_launches_per_step": apgd_n}
+    if trace_dir is not None:
+        rec["trace"] = _trace_check(torch, trace_dir, n_apgd, busy_us,
+                                    f"[observability] (b) {tag} window, "
+                                    f"{window_us / 1e3:.1f} ms:")
+    return rec
+
+
+def profile_trace_run(torch, ops) -> dict:
+    """[observability] (c): ``python -m deepmimic_mujoco_torch.cli.
+    profile_trace --num-envs 768 --horizon 8 --iters 1`` (in-process) into
+    a temporary directory, then ``cli.trace_summary`` of its trace: the
+    trace's APGD kernels against the launches the wrappers counted in the
+    traced window, and its busy time against the CUDA self time of
+    ``key_averages()`` of the profile the tool returns.  Runs after every timing phase (the profiler's
+    after-effect, PERF.md §7)."""
+    import tempfile
+
+    from deepmimic_mujoco_torch.cli import profile_trace
+    from deepmimic_mujoco_torch.utils.profiling import device_self_us
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _zero_counts(ops)
+        t0 = time.perf_counter()
+        text, res = _quiet(profile_trace.main, PROFILE_TRACE_ARGV
+                           + ["--out", tmp])
+        wall = time.perf_counter() - t0
+        launches = _counts(ops)
+        t0 = time.perf_counter()
+        busy_us = device_self_us(res.pop("profile"))
+        ka_s = time.perf_counter() - t0
+        rec = _trace_check(torch, tmp, res["apgd_launches"], busy_us,
+                           "[observability] (c) profile_trace:")
+    rec.update(env_steps_per_s=res["env_steps_per_s"],
+               traced_s=res["seconds"], wall_s=wall, key_averages_s=ka_s,
+               launches=launches,
+               busy_share=rec["busy_ms"] / (1e3 * res["seconds"]))
+    print(f"[observability] (c) cli.profile_trace {' '.join(PROFILE_TRACE_ARGV)}"
+          f": {text.strip().splitlines()[-1]}; {wall:.1f} s in all (warm-up "
+          f"iteration, trace export), key_averages() {ka_s:.1f} s; traced "
+          f"window {res['seconds']:.3f} s, "
+          f"device busy {100 * rec['busy_share']:.1f}%; launches {launches} "
+          f"({_smi()})")
+    if res["apgd_launches"] != 4 * 8 or launches["apgd_solve"] != 2 * 4 * 8:
+        raise AssertionError(f"[observability] (c) launches {res}, "
+                             f"{launches}")
+    return rec
+
+
+def render_rollouts(torch, ops) -> dict:
+    """[observability] (d): the rollouts of ``cli.render_policy`` (walk_r2,
+    the recipe, relu 1024-512) and ``cli.render_vmapped`` (the
+    ``RENDER_LANE`` lane of imit5_r5b on the 15-clip env), ``RENDER_STEPS``
+    control steps each on the card (counted) and on the CPU: qpos within
+    ``RENDER_ATOL`` of max(1, |x|), equal alive flags.  The rendering
+    itself needs MuJoCo, which the card's machine lacks."""
+    from deepmimic_mujoco_torch.cli import render_policy, render_vmapped
+
+    cases = {
+        "render_policy": (render_policy, ["--ckpt", CKPT_R2]),
+        "render_vmapped": (render_vmapped, [
+            "--ckpt", CKPT_LANES, "--clips", LANE_CLIPS, "--motion",
+            RENDER_LANE])}
+    out = {}
+    for name, (tool, argv) in cases.items():
+        args = tool.build_parser().parse_args(
+            argv + ["--steps", str(RENDER_STEPS)])
+        got, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            env, policy, params, state = tool.setup(args, torch.device(dev))
+            if dev == "cuda":
+                with _watch(torch, ops) as w:
+                    got[dev] = render_policy.rollout(env, policy, params,
+                                                     state, RENDER_STEPS)
+                secs[dev] = w["seconds"]
+            else:
+                t0 = time.perf_counter()
+                got[dev] = render_policy.rollout(env, policy, params, state,
+                                                 RENDER_STEPS)
+                secs[dev] = time.perf_counter() - t0
+        (q_c, a_c), (q_h, a_h) = got["cuda"], got["cpu"]
+        q_c, a_c = q_c.cpu(), a_c.cpu()
+        diff = float(((q_c - q_h).abs() / q_h.abs().clamp(min=1.0)).max())
+        rec = {"qpos_rel_diff": diff, "alive_card": int(a_c.sum()),
+               "alive_cpu": int(a_h.sum()), "launches": w["launches"],
+               "seconds_card": secs["cuda"], "seconds_cpu": secs["cpu"]}
+        out[name] = rec
+        print(f"[observability] (d) cli.{name} rollout, {RENDER_STEPS} "
+              f"control steps, card vs CPU: qpos {diff:.3e} of max(1, |x|) "
+              f"(bound {RENDER_ATOL}), alive {rec['alive_card']} / "
+              f"{rec['alive_cpu']}, {secs['cuda']:.2f} s on the card, "
+              f"{secs['cpu']:.2f} s on the CPU, launches {w['launches']} "
+              f"({_smi()})")
+        want = {"apgd_solve": 8 * RENDER_STEPS, "apgd_solve_lanes": 0,
+                "apgd_solve_wide": 0}
+        if not (diff <= RENDER_ATOL and bool((a_c == a_h).all())
+                and w["launches"] == want and not w["scans"]):
+            raise AssertionError(f"[observability] (d) {name}: {rec}")
+    return out
 
 
 def main() -> int:
@@ -3188,12 +3455,12 @@ def main() -> int:
     # the card against the CPU, and the training CLI; still before any
     # profiler session
     train = {768: _train(torch, ops, 768, horizon=TRAIN_HORIZON_768,
-                         warm_up=True),
+                         first=True),
              B_MAIN: _train(torch, ops, B_MAIN)}
     launches["apgd_solve"] += sum(r["launches"]["apgd_solve"]
                                   for r in train.values())
     seg_diff = _segment_card_vs_cpu(torch)
-    _train_cli()
+    obs = {"formats": _train_cli()}
 
     # the imitation recipe: evaluation of walk_r2, then training; still
     # before any profiler session
@@ -3275,6 +3542,11 @@ def main() -> int:
     ingest = mocap_ingest_phase(torch, ops)
     launches["apgd_solve"] += sum(n["apgd_solve"]
                                   for n in ingest["launches"])
+    # the render tools' rollouts, card vs CPU (the rendering needs MuJoCo,
+    # which the card's machine lacks); before any profiler session
+    obs["render"] = render_rollouts(torch, ops)
+    launches["apgd_solve"] += sum(r["launches"]["apgd_solve"]
+                                  for r in obs["render"].values())
 
     # one env step's four solves through the dispatch: the wrappers' counts
     # give the launches; profiler windows show what ran on the device (a
@@ -3302,14 +3574,17 @@ def main() -> int:
 
     # where an env step's time goes: a profiled window of 5 steps at 4096
     # (blocks layout, whose solve dispatch launches the APGD kernel alone),
-    # then 3 steps of the imitation recipe at 4096
-    _profile(torch, runner, env, policy, params, state, 5, "[profile]")
+    # then 2 steps of the imitation recipe at 4096
+    with tempfile.TemporaryDirectory() as tmp:
+        obs["walk_window"] = _profile(torch, runner, env, policy, params,
+                                      state, 5, "[profile]", ops=ops,
+                                      trace_dir=tmp)
     imit_env = DPEnvV3(model=build_humanoid(device="cuda"), **RECIPE_ENV)
     imit_policy = MlpPolicy(**RECIPE_POLICY)
     imit["profile"] = _profile(
         torch, runner, imit_env, imit_policy,
         checkpoint.load_trpo_params(CKPT_R2, imit_policy, "cuda"),
-        imit_env.reset_at(torch.arange(B_MAIN) % imit_env.clip_len), 3,
+        imit_env.reset_at(torch.arange(B_MAIN) % imit_env.clip_len), 2,
         "[imitation] [profile]")
     # a PGS step's launches (its sweeps are plain PyTorch) and the imported
     # model's exact-cold step, the first user path on the wide kernel
@@ -3317,8 +3592,11 @@ def main() -> int:
         m_env = DPEnvV3(model=mode_model(case, "cuda"))
         modes[case]["profile"] = _profile(
             torch, runner, m_env, policy, params,
-            m_env.reset_at(torch.arange(B_MAIN) % m_env.clip_len), 2,
+            m_env.reset_at(torch.arange(B_MAIN) % m_env.clip_len), 1,
             f"[physics-modes] [profile] {case}")
+    # cli.profile_trace and cli.trace_summary, with the profiler sessions
+    obs["profile_trace"] = profile_trace_run(torch, ops)
+    launches["apgd_solve"] += obs["profile_trace"]["launches"]["apgd_solve"]
 
     # the card's rollout against the CPU's (plain versions), small input
     idx = torch.arange(16) * 2 % 39
@@ -3391,6 +3669,7 @@ def main() -> int:
     kernels[0]["physics_modes"] = modes
     kernels[0]["dist"] = dist
     kernels[0]["mocap_ingest"] = ingest
+    kernels[0]["observability"] = obs
     print(f"[done] {time.perf_counter() - t_start:.1f} s after the imports")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,10 @@ play_mocap.py``): play a clip's frames with the root chained across cycles
 (``DPEnvV3(reward_mode="mocap")``, zero actions), printing the mean config
 reward per cycle.  The frames of a cycle run as one batch: each starts
 from its own frame, as in the JAX loop, so one batch serves every cycle.
-``--video`` needs MuJoCo's renderer, which is not ported: it raises.
-Without ``--device cpu`` it runs on the CUDA card."""
+``--video out.avi`` renders the played track through host MuJoCo at the
+clip's frame rate (``io_utils/video.py``; MuJoCo and cv2 are checked
+before anything runs).  Without ``--device cpu`` it runs on the CUDA
+card."""
 
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from deepmimic_mujoco_torch.envs.dp_env_v3 import DPEnvV3
+from deepmimic_mujoco_torch.io_utils import video
 from deepmimic_mujoco_torch.mocap.registry import get_clip
 from deepmimic_mujoco_torch.physics.humanoid import build_humanoid
 
@@ -33,9 +36,7 @@ def main(argv=None) -> np.ndarray:
                    help="torch device (default cuda; pass cpu for the CPU)")
     args = p.parse_args(argv)
     if args.video:
-        raise NotImplementedError(
-            "--video (io_utils/video.py, MuJoCo rendering) is not ported "
-            "(ROADMAP.md, queue A, item 3)")
+        video.require_renderer()
 
     clip = get_clip(args.motion)
     print(f"{clip.name}: {len(clip)} frames, dt={clip.dt:.4f}, "
@@ -61,6 +62,10 @@ def main(argv=None) -> np.ndarray:
         if rewards is not None:
             print(f"cycle {cycle}: mean config reward "
                   f"{np.mean(rewards):.4f}")
+    if args.video:
+        out = video.render_qpos_trajectory(
+            np.stack(qpos_track), args.video, fps=int(round(1.0 / clip.dt)))
+        print("wrote", out)
     return np.stack(qpos_track)
 
 

@@ -61,6 +61,7 @@ END_EFFECTORS = ["right_wrist", "left_wrist", "right_ankle", "left_ankle"]
 NQ = 7 + sum(3 if DOF_DEF[j] == 3 else 1 for j in BODY_JOINTS)  # = 35
 # qvel layout: [root_lin(3), root_ang(3)] + per BODY_JOINTS dofs
 NV = 6 + sum(DOF_DEF[j] for j in BODY_JOINTS)  # = 34
+NU = NV - 6  # 28 actuated dofs
 
 
 def kp_kd_vectors() -> tuple[np.ndarray, np.ndarray]:
@@ -71,3 +72,25 @@ def kp_kd_vectors() -> tuple[np.ndarray, np.ndarray]:
         kp += [PARAMS_KP_KD[j][0]] * DOF_DEF[j]
         kd += [PARAMS_KP_KD[j][1]] * DOF_DEF[j]
     return np.asarray(kp, np.float32), np.asarray(kd, np.float32)
+
+
+def joint_qpos_slices() -> dict[str, slice]:
+    """qpos slice per joint (after the root), MuJoCo order."""
+    out = {}
+    off = 7
+    for j in BODY_JOINTS:
+        n = 3 if DOF_DEF[j] == 3 else 1
+        out[j] = slice(off, off + n)
+        off += n
+    return out
+
+
+def joint_qvel_slices() -> dict[str, slice]:
+    """qvel slice per joint (after the root), MuJoCo order."""
+    out = {}
+    off = 6
+    for j in BODY_JOINTS:
+        n = DOF_DEF[j]
+        out[j] = slice(off, off + n)
+        off += n
+    return out

@@ -36,3 +36,56 @@ def discount_with_boundaries(x: torch.Tensor, new: torch.Tensor,
         carry = x[t] + gamma * carry * nonterm[t]
         out[t] = carry
     return out
+
+
+def _tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts, lists, tuples and named tuples in
+    ``jax.tree.leaves``' order: dict keys sorted, sequences in order, None
+    an empty subtree."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in _tree_leaves(t)]
+    return [tree]
+
+
+def _tree_rebuild(tree, leaves):
+    """``tree`` with its leaves replaced, in :func:`_tree_leaves`' order,
+    by the iterator ``leaves``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        new = {k: _tree_rebuild(tree[k], leaves) for k in sorted(tree)}
+        return {k: new[k] for k in tree}
+    if isinstance(tree, (list, tuple)):
+        items = [_tree_rebuild(t, leaves) for t in tree]
+        if hasattr(tree, "_fields"):
+            return type(tree)(*items)
+        return type(tree)(items)
+    return next(leaves)
+
+
+def flatten(tree):
+    """A tree of tensors → (flat vector, unflatten), as
+    ``jax.flatten_util.ravel_pytree`` does: the leaves raveled in
+    ``jax.tree.leaves``' order (dict keys sorted, lists in order) into one
+    vector of their promoted dtype; ``unflatten(v)`` rebuilds the tree with
+    each leaf in its own shape and dtype."""
+    leaves = [torch.as_tensor(x) for x in _tree_leaves(tree)]
+    if not leaves:
+        return torch.zeros(0), lambda flat: _tree_rebuild(tree, iter(()))
+    dtype = leaves[0].dtype
+    for x in leaves[1:]:
+        dtype = torch.promote_types(dtype, x.dtype)
+    flat = torch.cat([x.reshape(-1).to(dtype) for x in leaves])
+
+    def unflatten(v: torch.Tensor):
+        out, off = [], 0
+        for x in leaves:
+            out.append(v[off:off + x.numel()].reshape(x.shape).to(x.dtype))
+            off += x.numel()
+        return _tree_rebuild(tree, iter(out))
+
+    return flat, unflatten

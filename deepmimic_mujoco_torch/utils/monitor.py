@@ -37,3 +37,20 @@ class Monitor:
 
     def close(self) -> None:
         self.f.close()
+
+
+def load_results(path: str):
+    """A monitor CSV read back as a pandas DataFrame of its episode rows,
+    ``t`` made absolute by the header's ``t_start``, the header in
+    ``df.attrs["headers"]``."""
+    import pandas
+
+    with open(path) as f:
+        first = f.readline()
+        if not first.startswith("#"):
+            raise ValueError(f"{path!r} is not a monitor file")
+        header = json.loads(first[1:])
+        df = pandas.read_csv(f, index_col=None)
+    df["t"] += header["t_start"]
+    df.attrs["headers"] = header
+    return df

@@ -3,8 +3,9 @@ plain PyTorch version, and the main path on CUDA against the CPU (the
 walk, the recipe, the multi-clip env, the learners, the original
 DeepMimic PPO stack's surface and train step, the other envs: DPEnvV1,
 DPEnvV2, HumanoidTestEnv, VecNormalize and the facade, and the
-physics-fidelity modes with the imported models, and data-parallel
-training: gloo ranks on the card, NCCL at world 1).
+physics-fidelity modes with the imported models, data-parallel
+training: gloo ranks on the card, NCCL at world 1, and the observability
+and render tools: the trace's APGD count, the render rollouts).
 
 Imports no JAX (the card's machine has none), so it runs there without the
 repository's conftest:
@@ -911,3 +912,52 @@ def test_dryrun_on_two_gloo_ranks_on_the_card(cuda):
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip().splitlines()[-1].startswith(
         "dryrun_multichip(2): OK")
+
+
+# ---------------------------------------------------------------------------
+# observability and rendering (slice 12)
+
+
+def test_device_trace_counts_the_apgd_launches(cuda, tmp_path):
+    """A walk window (64 envs x 2 steps) through ``utils/profiling.
+    device_trace``: ``cli.trace_summary`` of its trace counts the 8 APGD
+    launches the wrappers counted and the device time of
+    ``key_averages()`` within 1%; ``cli.profile_trace`` at 64 envs x 4
+    steps: its trace's APGD kernels are the 16 it counted, and its busy
+    time the ``key_averages()`` device time of the profile it returns
+    within 1%
+    (``chip_smoke._profile``, ``chip_smoke._trace_check``, which raise
+    otherwise)."""
+    import chip_smoke
+    from deepmimic_mujoco_torch.cli import profile_trace, trace_summary
+    from deepmimic_mujoco_torch.utils import profiling
+
+    env = DPEnvV3(model=build_humanoid(device="cuda"))
+    policy = MlpPolicy(ob_dim=56, ac_dim=28)
+    params = checkpoint.load_trpo_params(CKPT, policy, "cuda")
+    state = env.reset_at(torch.arange(64) % env.clip_len)
+    rec = chip_smoke._profile(torch, runner, env, policy, params, state, 2,
+                              "[test]", ops=ops,
+                              trace_dir=str(tmp_path / "walk"))
+    assert rec["trace"]["apgd_trace"] == 8
+    res = profile_trace.main(["--num-envs", "64", "--horizon", "4",
+                              "--iters", "1", "--out", str(tmp_path / "pt")])
+    assert res["apgd_launches"] == 16
+    summary = trace_summary.summarize(
+        trace_summary.find_trace(str(tmp_path / "pt")))
+    assert summary["by_category_count"]["apgd"] == 16
+    busy_ms = profiling.device_self_us(res["profile"]) / 1e3
+    assert abs(summary["busy_ms"] - busy_ms) <= 0.01 * busy_ms
+
+
+def test_render_rollouts_on_the_card_match_the_cpu(cuda):
+    """The rollouts of ``cli.render_policy`` (walk_r2) and
+    ``cli.render_vmapped`` (an imit5_r5b lane), 30 control steps on the
+    card and on the CPU: qpos within 1e-3 of max(1, |x|), equal alive
+    flags, 8 ``apgd_solve`` launches per control step
+    (``chip_smoke.render_rollouts``, which raises otherwise)."""
+    import chip_smoke
+
+    rec = chip_smoke.render_rollouts(torch, ops)
+    for r in rec.values():
+        assert r["alive_card"] == r["alive_cpu"]

@@ -12,6 +12,7 @@ import contextlib
 import dataclasses
 import io
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -229,10 +230,12 @@ def _stdout(fn, argv):
     return buf.getvalue(), out
 
 
-def test_torque_test_and_play_mocap_print_jax_lines():
+def test_torque_test_and_play_mocap_print_jax_lines(monkeypatch):
     """``torque_test --steps 40`` and ``play_mocap --through-dynamics
     --cycles 2`` (spinkick's 78 frames as one batch) print JAX's lines, to
-    their 3-4 printed digits; the played track chains the root."""
+    their 3-4 printed digits; the played track chains the root.  Without
+    MuJoCo, ``--video`` raises an ImportError naming it before anything
+    plays (the rendering itself: ``tests/test_torch_render.py``)."""
     out, mean = _stdout(torque_test.main, ["--device", "cpu", "--steps", "40"])
     ref, _ = _stdout(jax_torque_test.main, ["--steps", "40"])
     assert out == ref
@@ -245,5 +248,7 @@ def test_torque_test_and_play_mocap_print_jax_lines():
     assert out == ref and "cycle 1: mean config reward" in out
     assert track.shape == (156, 35)
     np.testing.assert_allclose(track[78, :2], track[77, :2] + track[0, :2])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        play_mocap.main(["--device", "cpu", "--video", "x.avi"])
+    monkeypatch.setitem(sys.modules, "mujoco", None)
+    with pytest.raises(ImportError, match="mujoco") as err:
+        _stdout(play_mocap.main, ["--device", "cpu", "--video", "x.avi"])
+    assert err.value.name == "mujoco"

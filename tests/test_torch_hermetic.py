@@ -5,8 +5,11 @@ import of them — or of ``deepmimic_mujoco_tpu``, whose modules import JAX —
 from ``deepmimic_mujoco_torch`` or ``chip_smoke.py`` would stop the port
 there at import.  One test runs the CLIs in a subprocess whose import
 system refuses those packages, another imports the modules that reach the
-host-MuJoCo backend there; the others scan the sources.  MuJoCo may be
-imported only by ``physics/mj_host.py``, and only inside its functions."""
+host-MuJoCo backend or the host-only libraries there; the others scan the
+sources.  MuJoCo may be imported only by ``physics/mj_host.py`` and
+``io_utils/video.py``, and only inside their functions; cv2, matplotlib,
+pandas and tensorboard, which serve rendering, plots and logs on the host,
+only inside functions."""
 
 import ast
 import os
@@ -17,9 +20,12 @@ import pytest
 
 ROOT = os.path.normpath(os.path.join(os.path.dirname(__file__), ".."))
 FORBIDDEN = ("jax", "jaxlib", "mujoco", "deepmimic_mujoco_tpu")
-# the one module that may import MuJoCo, inside its functions only
+# the modules that may import MuJoCo, inside their functions only
 MJ_HOST = os.path.join(ROOT, "deepmimic_mujoco_torch", "physics",
                        "mj_host.py")
+VIDEO = os.path.join(ROOT, "deepmimic_mujoco_torch", "io_utils", "video.py")
+# host-only libraries: imported inside functions only, anywhere
+HOST_ONLY = ("cv2", "matplotlib", "pandas", "tensorboard")
 
 _BLOCKER = """
 import runpy, sys
@@ -155,20 +161,31 @@ def _imported_roots(path):
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_port_sources_import_no_jax(path):
     """No source imports JAX or the JAX package; none but
-    ``physics/mj_host.py`` imports MuJoCo."""
-    allowed = {"mujoco"} if path == MJ_HOST else set()
+    ``physics/mj_host.py`` and ``io_utils/video.py`` imports MuJoCo."""
+    allowed = {"mujoco"} if path in (MJ_HOST, VIDEO) else set()
     bad = sorted(set(_imported_roots(path)) & (set(FORBIDDEN) - allowed))
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
 def test_mj_host_imports_mujoco_only_inside_functions():
-    found = [in_fn for root, in_fn in _imports(MJ_HOST) if root == "mujoco"]
-    assert found and all(found), found
+    for path in (MJ_HOST, VIDEO):
+        found = [in_fn for root, in_fn in _imports(path) if root == "mujoco"]
+        assert found and all(found), (path, found)
+
+
+@pytest.mark.parametrize("path", sorted(_sources()),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_host_only_libraries_are_imported_inside_functions(path):
+    """cv2, matplotlib, pandas and tensorboard appear only inside
+    functions."""
+    bad = sorted({root for root, in_fn in _imports(path)
+                  if root in HOST_ONLY and not in_fn})
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad} at top level"
 
 
 _MJ_BLOCKER = """
 import sys
-FORBIDDEN = {forbidden!r}
+FORBIDDEN = {forbidden!r} + {host_only!r}
 
 class Refuse:
     def find_spec(self, name, path=None, target=None):
@@ -180,6 +197,13 @@ sys.meta_path.insert(0, Refuse())
 import deepmimic_mujoco_torch.physics.mj_host
 import deepmimic_mujoco_torch.envs.dp_env_v3
 import deepmimic_mujoco_torch.cli.train_trpo
+import deepmimic_mujoco_torch.io_utils.video
+import deepmimic_mujoco_torch.utils.plotting
+import deepmimic_mujoco_torch.utils.statistics
+import deepmimic_mujoco_torch.cli.plot_curve
+import deepmimic_mujoco_torch.cli.render_policy
+import deepmimic_mujoco_torch.cli.render_vmapped
+import deepmimic_mujoco_torch.cli.play_mocap
 from deepmimic_mujoco_torch.envs.dp_env_v3 import DPEnvV3
 try:
     DPEnvV3(dynamics="mujoco", device="cpu")
@@ -190,12 +214,17 @@ assert not [m for m in sys.modules if m.split(".")[0] in FORBIDDEN]
 
 
 def test_mj_host_env_and_cli_import_with_mujoco_refused():
-    """``physics.mj_host``, ``envs.dp_env_v3`` and ``cli.train_trpo``
-    import with MuJoCo (and JAX) refused; only building the MuJoCo backend
+    """``physics.mj_host``, ``envs.dp_env_v3``, ``cli.train_trpo`` and the
+    rendering, plotting and stats modules with their CLIs
+    (``io_utils.video``, ``utils.plotting``, ``utils.statistics``,
+    ``cli.plot_curve``, ``cli.render_policy``, ``cli.render_vmapped``,
+    ``cli.play_mocap``) import with MuJoCo, cv2, matplotlib, pandas and
+    tensorboard (and JAX) refused; only building the MuJoCo backend
     reaches for it."""
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     proc = subprocess.run(
-        [sys.executable, "-c", _MJ_BLOCKER.format(forbidden=FORBIDDEN)],
+        [sys.executable, "-c", _MJ_BLOCKER.format(forbidden=FORBIDDEN,
+                                                  host_only=HOST_ONLY)],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "refused: import of mujoco refused" in proc.stdout
