@@ -13,6 +13,10 @@ check, with the card's solve on the kernel and on the plain version and
 the dual matrix stored in bf16 and in f32, then with planted faults
 (:func:`dp_witness`).
 
+``python3 chip_smoke.py --f32-witness`` runs only gail_r4's evaluation and
+imit5_r5b's backflip lane over whole episodes on the card with the dual
+matrix in bf16 and in f32, and on the CPU in f32 (:func:`f32_witness`).
+
 Phases, each printing its lines before the last:
 
 1. device — the card's name and power limit, as ``nvidia-smi`` prints them;
@@ -45,16 +49,19 @@ Phases, each printing its lines before the last:
    humanoid with 16/16 caps, uncapped and in the exact-cold configuration
    on the card, every solve through the wide kernel (counted;
    ``_apgd_scan`` not called), held against the same rollouts on the
-   CPU;
+   CPU; then the configurations the studies put on user paths
+   (:func:`_study_shapes`): ``apgd_solve`` with f32 A at 300 iterations
+   and ``apgd_solve_wide`` at ne 40 and 48, both A types, against the
+   plain version;
 4. main path — ``cli.train_trpo --task evaluate`` of the bundled walk
    checkpoint at 4096 envs × 100 steps (blocks layout) and 768 × 50 (both
    layouts),
    with the launch counts set to 0 just before each run and read just after,
    before any profiler session; then [train], also before any profiler
    session: ``TRPO.iteration`` at 768 envs × 16 steps (one iteration,
-   the process's first training, its set-up included) and at 4096 × 64,
+   the process's first training, its set-up included) and at 4096 × 32,
    g_step 1
-   (bench.py's configuration; one iteration), the counts set to 0 just
+   (bench.py's width; one iteration), the counts set to 0 just
    before the timed one: env-steps/s, the time
    of the rollout, the policy update and the vf epochs, APGD launches per
    env step (4), meankl ≤ 1.5·max_kl and finite stats; one
@@ -69,7 +76,7 @@ Phases, each printing its lines before the last:
    the cap, reward per step within 0.03 of the port's CPU figure, 8
    ``apgd_solve`` launches per control step, no wide launch, no call of
    the plain ``_apgd_scan``), ``TRPO.iteration`` with the recipe's flags
-   at 4096 envs x 32 steps (one iteration) and the training CLI in-process
+   at 4096 envs x 16 steps (one iteration) and the training CLI in-process
    at 64 envs for one iteration, whose checkpoint must read back; then
    [multi], the multi-clip path, also before any profiler session: 16
    ``DPEnvV3Multi`` envs over five clips x 20 steps on the card against the
@@ -168,7 +175,21 @@ Phases, each printing its lines before the last:
    returns (:func:`profile_trace_run`); (d) the rollouts of
    ``cli.render_policy`` and ``cli.render_vmapped``, 30 control steps on
    the card against the CPU, before any profiler session
-   (:func:`render_rollouts`);
+   (:func:`render_rollouts`); [studies] (slice 13, :func:`studies_phase`,
+   before any profiler session): the CLIs of the five physics studies
+   through their ``main(argv)`` on the card, counted, and on the CPU: (a)
+   ``cli.warmstart_study``, its 11 solver configurations x 20 control
+   steps of one env (cold300 runs f32 A at 300 iterations), the RMS table
+   beside JAX's CPU figures, 3 configurations held to the CPU over 10
+   steps (1e-4 of max(1, |x|) with f32 A, 1e-3 with bf16); (b)
+   ``cli.contactcap_study``, walk and spinkick under 5 caps x 20 steps (ne
+   139, 64, 48, 40 on the wide kernel, 32 on ``apgd_solve``, 4 solves per
+   step each), full and cap8 held to the CPU over 10 steps (1e-3); (c)
+   ``cli.clip_tracking_study`` (walk and spinkick, mocap joint limits, 32
+   frames, 8 starts x 30 steps), (d) ``cli.tracking_ceiling_probe``
+   (spinkick, 5 probes, 32 frames), their reward means and terms within
+   0.01 of the CPU; (e) ``cli.setting_states`` (walk, 10 frames), every
+   column within 1e-3 of max(1, |x|);
 5. one JSON line with every kernel's numbers (with the registers, spills
    and shared memory of the instantiation the main path runs, and ptxas's
    figures for every instantiation), then the result line.
@@ -212,6 +233,7 @@ EXACT_COLD_ITERS = 50
 CAPS_STEPS = 10              # [caps] rollout steps
 TRAIN_HORIZON = 64           # bench.py's TRPO configuration: g_step 1
 TRAIN_HORIZON_768 = 16       # [train] at 768 envs: 64, cut
+WALK_TRAIN_HORIZON = 32      # [train] at 4096 envs: 64, cut
 MAX_KL = 0.01                # TRPOConfig's default
 
 # the imitation recipe (README "Quick start") and its bundled policy
@@ -230,7 +252,8 @@ RECIPE_FLAGS = ["--reward-mode", "imitation_dm", "--control-mode",
 RECIPE_TRAIN_FLAGS = ["--reset-mode", "rsi", "--gamma", "0.95", "--lam",
                       "0.95"]
 IMIT_HORIZON = 300           # the recipe's episode cap
-IMIT_TRAIN_HORIZON = 32
+IMIT_TRAIN_HORIZON = 16      # [imitation] training at 4096 envs: 32, cut
+IMIT_CLI_HORIZON = 32        # the recipe's training CLI at 64 envs
 # reward per step of walk_r2 on the CPU: the port's cli.eval_imitation,
 # 32 deterministic episodes x 300 steps from the frames that JAX's
 # tools/eval_imitation.py draws (JAX: 0.771 on the same frames)
@@ -361,10 +384,42 @@ CPU_PLAY_MOCAP = 0.2112
 OBS_LOG_FORMAT = "stdout,log,csv,json,tensorboard"
 OBS_REL = 1e-6               # csv, json and tensorboard values agree
 TRACE_BUSY_REL = 0.01        # the trace's busy time against key_averages()
-PROFILE_TRACE_ARGV = ["--num-envs", "768", "--horizon", "8", "--iters", "1"]
+PROFILE_TRACE_HORIZON = 4    # cli.profile_trace at 768 envs: its 64, cut
+PROFILE_TRACE_ARGV = ["--num-envs", "768", "--horizon",
+                      str(PROFILE_TRACE_HORIZON), "--iters", "1"]
 RENDER_STEPS = 30            # the render tools' rollouts: their 300, cut
 RENDER_ATOL = 1e-3           # card vs CPU qpos, of max(1, |x|)
 RENDER_LANE = "spinkick"     # the imit5_r5b lane render_vmapped rolls
+
+# [studies] (slice 13): the solver-accuracy and tracking studies' CLIs
+WARM_STEPS = 20              # warmstart_study: its 40 control steps, cut
+CAP_STEPS = 20               # contactcap_study: its 40, cut
+STUDY_CPU_STEPS = 10         # the same rollouts on the CPU
+WARM_CPU_CONFIGS = "cold300,cold50,warm25+bf16"
+STUDY_BOUND = {"f32": 1e-4, "bf16": 1e-3}  # card vs CPU, of max(1, |x|)
+TRACK_ARGV = ["--clips", "walk,spinkick", "--joint-limits", "mocap",
+              "--n-frames", "32", "--n-starts", "8", "--horizon", "30"]
+TRACK_TOL = 0.01             # reward means and terms, card vs CPU
+SETTING_FRAMES = 10
+# qpos RMS against cold300 over 20 / 40 steps of JAX's tools/
+# warmstart_study.py on the CPU (JAX_PLATFORMS=cpu, as printed: 6 decimals)
+JAX_WARMSTART = {
+    "cold50": (0.000147, 0.000230), "warm25": (0.006030, 0.013256),
+    "warm15": (0.007616, 0.017171), "warm10": (0.007084, 0.016378),
+    "bf16": (0.000127, 0.000201), "warm25+bf16": (0.006070, 0.013360),
+    "stage_kin": (0.006070, 0.013360), "stage_kin8": (0.006070, 0.013360),
+    "stage_kin12": (0.005645, 0.016867),
+    "stage_kin12w15": (0.005113, 0.015022)}
+# tools/contactcap_study.py on the CPU: every cap 0.000000 from full over
+# 20 and 40 steps, on walk and on spinkick (6 decimals)
+JAX_CONTACTCAP = 0.0
+# benchdata/clip_tracking_mocap_limits.json (JAX's tools/
+# clip_tracking_study.py --joint-limits mocap, horizon 300): one-step
+# reward mean and min, open-loop reward per step and length
+JAX_TRACKING = {"walk": (0.9579694271087646, 0.8391577005386353,
+                         0.4430669050325047, 35.25),
+                "spinkick": (0.8873391151428223, 0.27629125118255615,
+                             0.23817314713684384, 28.5)}
 
 
 def dp_frames(n: int = DP_ENVS):
@@ -637,7 +692,7 @@ def _train(torch, ops, n_envs: int, kind: str = "walk",
     be called.  Phase times are wall time between synchronizations
     around the rollout, the policy update (gradient, CG, line search) and
     the vf epochs.  ``kind`` "recipe": [imitation], the same on the
-    imitation recipe's env, policy and flags at 32 steps (8 APGD launches
+    imitation recipe's env, policy and flags at 16 steps (8 APGD launches
     per control step: 2 substeps of 4 stage solves); "v2": [envs],
     ``DPEnvV2`` (dt 0.002, 6 substeps: 24 launches per control step) with
     the CLI's default 100x2 tanh policy at 16 steps."""
@@ -895,7 +950,7 @@ def _train_cli(recipe: bool = False) -> dict | None:
     from deepmimic_mujoco_torch.models.policy import MlpPolicy
 
     if recipe:
-        tag, horizon = "[imitation]", IMIT_TRAIN_HORIZON
+        tag, horizon = "[imitation]", IMIT_CLI_HORIZON
         flags, policy = RECIPE_FLAGS + RECIPE_TRAIN_FLAGS, MlpPolicy(
             **RECIPE_POLICY)
     else:
@@ -1333,11 +1388,12 @@ def _lane_segment_card_vs_cpu(torch) -> dict:
 
 
 def _gail_learner(n_envs: int, horizon: int, device: str = "cuda",
-                  d_step: int = 1):
+                  d_step: int = 1, solver_dtype: str = "bf16"):
     """The r4 run's learner (``tools/r4_chain.sh``: the recipe env with the
     full obs, a tanh 100x2 policy with a learned logstd, the GAIL CLI's
     defaults of g_step 3 and d_step 1, RSI resets) at ``n_envs`` envs and
-    ``horizon`` steps, with the bundled expert."""
+    ``horizon`` steps, with the bundled expert; A stored in
+    ``solver_dtype``."""
     from deepmimic_mujoco_torch.algos.dataset import MujocoDset
     from deepmimic_mujoco_torch.algos.gail import GAIL, GAILConfig
     from deepmimic_mujoco_torch.algos.trpo import TRPOConfig
@@ -1346,34 +1402,47 @@ def _gail_learner(n_envs: int, horizon: int, device: str = "cuda",
     from deepmimic_mujoco_torch.physics.humanoid import build_humanoid
 
     dset = MujocoDset(EXPERT)
-    env = DPEnvV3(model=build_humanoid(device=device), **RECIPE_ENV)
+    env = DPEnvV3(model=build_humanoid(device=device,
+                                       solver_dtype=solver_dtype),
+                  **RECIPE_ENV)
     return GAIL(env, MlpPolicy(ob_dim=68, ac_dim=28), dset.obs, dset.acs,
                 GAILConfig(trpo=TRPOConfig(horizon=horizon, num_envs=n_envs,
                                            reset_mode="rsi"),
                            d_step=d_step))
 
 
-def _gail_eval(torch, ops) -> dict:
-    """[gail] gail_r4's policy read by ``load_gail_state``: 64 RSI
-    episodes x 300 steps from ``GAIL_FRAMES``, deterministic, through the
-    runner; the launch counts set to 0 just before and read just after."""
+def _gail_policy_run(torch, device: str = "cuda",
+                     solver_dtype: str = "bf16", ops=None):
+    """(rollout, seconds, launches) of gail_r4's policy, read by
+    ``load_gail_state``, over 64 RSI episodes x 300 steps from
+    ``GAIL_FRAMES``, deterministic, through the runner on ``device`` with
+    A in ``solver_dtype``; with ``ops``, the launch counts set to 0 just
+    before and read just after."""
     from deepmimic_mujoco_torch.algos import runner
     from deepmimic_mujoco_torch.algos.trpo import Draws
     from deepmimic_mujoco_torch.io_utils import checkpoint
 
-    learner = _gail_learner(64, GAIL_TRAIN_HORIZON)
+    learner = _gail_learner(64, GAIL_TRAIN_HORIZON, device=device,
+                            solver_dtype=solver_dtype)
     state = checkpoint.load_gail_state(CKPT_GAIL, learner, Draws(
-        torch.Generator(device="cuda").manual_seed(SEED)))
+        torch.Generator(device=device).manual_seed(SEED)))
     env = learner.env
     start = env.reset_at([int(f) for f in GAIL_FRAMES.split(",")])
-    _zero_counts(ops)
+    if ops is not None:
+        _zero_counts(ops)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = runner.rollout(env, learner.policy, state.trpo.params, start,
                          IMIT_HORIZON)
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    n = _counts(ops)
+    return (out, time.perf_counter() - t0,
+            _counts(ops) if ops is not None else None)
+
+
+def _gail_eval(torch, ops) -> dict:
+    """[gail] gail_r4's policy over 64 RSI episodes x 300 steps
+    (:func:`_gail_policy_run`), counted."""
+    out, dt, n = _gail_policy_run(torch, ops=ops)
     lens = out.ep_len.double()
     rec = {"ep_len_mean": float(lens.mean()),
            "reward_per_step": float(out.ep_ret.double().mean())
@@ -3127,7 +3196,7 @@ def _profile(torch, runner, env, policy, params, state, steps: int,
 
 def profile_trace_run(torch, ops) -> dict:
     """[observability] (c): ``python -m deepmimic_mujoco_torch.cli.
-    profile_trace --num-envs 768 --horizon 8 --iters 1`` (in-process) into
+    profile_trace --num-envs 768 --horizon 4 --iters 1`` (in-process) into
     a temporary directory, then ``cli.trace_summary`` of its trace: the
     trace's APGD kernels against the launches the wrappers counted in the
     traced window, and its busy time against the CUDA self time of
@@ -3160,7 +3229,8 @@ def profile_trace_run(torch, ops) -> dict:
           f"window {res['seconds']:.3f} s, "
           f"device busy {100 * rec['busy_share']:.1f}%; launches {launches} "
           f"({_smi()})")
-    if res["apgd_launches"] != 4 * 8 or launches["apgd_solve"] != 2 * 4 * 8:
+    if (res["apgd_launches"] != 4 * PROFILE_TRACE_HORIZON
+            or launches["apgd_solve"] != 2 * 4 * PROFILE_TRACE_HORIZON):
         raise AssertionError(f"[observability] (c) launches {res}, "
                              f"{launches}")
     return rec
@@ -3216,6 +3286,305 @@ def render_rollouts(torch, ops) -> dict:
                 and w["launches"] == want and not w["scans"]):
             raise AssertionError(f"[observability] (d) {name}: {rec}")
     return out
+
+
+@contextlib.contextmanager
+def _solve_tally(solver):
+    """Counts the solver's dispatch calls by (ne, dtype of A, iterations):
+    on the card each is one kernel launch, ``apgd_solve`` for ne <= 32 and
+    ``apgd_solve_wide`` above (:func:`_studied` holds the wrappers' counts
+    to these sums)."""
+    from collections import Counter
+
+    dispatch, tally = solver.apgd, Counter()
+
+    def spy(a, b, mu, f0, **kw):
+        tally[int(a.shape[-1]), str(a.dtype)[6:], kw["iterations"]] += 1
+        return dispatch(a, b, mu, f0, **kw)
+
+    solver.apgd = spy
+    try:
+        yield tally
+    finally:
+        solver.apgd = dispatch
+
+
+def _studied(torch, ops, tag: str, fn, argv: list):
+    """(return value, record) of a study CLI's ``main(argv)`` on the card,
+    counted (:func:`_watch`): the plain ``_apgd_scan`` must not run, and
+    the wrappers' launches must equal the solves dispatched, ne <= 32 to
+    ``apgd_solve`` and above to ``apgd_solve_wide``.  The record holds
+    the seconds, the launches and the solves by (ne, A, iterations)."""
+    from deepmimic_mujoco_torch.physics import solver
+
+    with _watch(torch, ops) as w, _solve_tally(solver) as tally:
+        _, res = _quiet(fn, argv)
+    n = w["launches"]
+    want = {"apgd_solve": sum(v for k, v in tally.items() if k[0] <= NE),
+            "apgd_solve_lanes": 0,
+            "apgd_solve_wide": sum(v for k, v in tally.items() if k[0] > NE)}
+    if w["scans"] or n != want:
+        raise AssertionError(f"{tag} launches {n}, solves dispatched "
+                             f"{dict(tally)}; _apgd_scan called "
+                             f"{len(w['scans'])} times")
+    return res, {"seconds": w["seconds"], "launches": n,
+                 "solves": {f"ne {ne} {dt} {it} it": v
+                            for (ne, dt, it), v in sorted(tally.items())}}
+
+
+def _rel_max(x, ref) -> float:
+    """max |x − ref| / max(1, |ref|) of two numpy arrays."""
+    import numpy as np
+
+    return float(np.max(np.abs(x - ref) / np.maximum(1.0, np.abs(ref))))
+
+
+def _warmstart_study(torch, ops) -> dict:
+    """[studies] (a) ``cli.warmstart_study``: its 11 configurations x
+    ``WARM_STEPS`` control steps of one env on the card, the RMS table
+    against cold300 beside JAX's CPU figures; cold300, cold50 and
+    warm25+bf16 on the port's CPU at ``STUDY_CPU_STEPS``, the card's first
+    steps within ``STUDY_BOUND`` of them (by A's type).  cold300 puts f32 A
+    at 300 iterations through ``apgd_solve`` once per step."""
+    from deepmimic_mujoco_torch.cli import warmstart_study
+
+    card, rec = _studied(torch, ops, "[studies] (a)", warmstart_study.main,
+                         ["--steps", str(WARM_STEPS)])
+    t0 = time.perf_counter()
+    _, cpu = _quiet(warmstart_study.main, [
+        "--device", "cpu", "--steps", str(STUDY_CPU_STEPS), "--configs",
+        WARM_CPU_CONFIGS])
+    rec["seconds_cpu"] = time.perf_counter() - t0
+    steps = len(card["qpos"]) * WARM_STEPS
+    rec["s_per_step"] = rec["seconds"] / steps
+    models = warmstart_study.configs("cpu")
+    rec["card_vs_cpu"] = {
+        k: _rel_max(card["qpos"][k][:STUDY_CPU_STEPS], q)
+        for k, q in cpu["qpos"].items()}
+    rec["rms"] = card["rms"]
+    for name, (d20, d40) in card["rms"].items():
+        j20, j40 = JAX_WARMSTART[name]
+        print(f"[studies] (a) warmstart {name:>14}: qpos RMS vs cold300 on "
+              f"the card {d20:.6f} ({min(20, WARM_STEPS)} steps) {d40:.6f} "
+              f"({WARM_STEPS}); JAX on the CPU {j20:.6f} (20) {j40:.6f} "
+              f"(40)")
+    print(f"[studies] (a) cli.warmstart_study on the card: "
+          f"{len(card['qpos'])} configs x {WARM_STEPS} steps of one env, "
+          f"{rec['seconds']:.2f} s ({1e3 * rec['s_per_step']:.1f} ms per "
+          f"control step); card vs CPU over {STUDY_CPU_STEPS} steps, of "
+          f"max(1, |x|): " + ", ".join(
+              f"{k} {v:.3e} (bound "
+              f"{STUDY_BOUND[models[k].solver_dtype]:.0e})"
+              for k, v in rec["card_vs_cpu"].items())
+          + f"; CPU {rec['seconds_cpu']:.2f} s; launches {rec['launches']}; "
+          f"solves {rec['solves']} ({_smi()})")
+    if not all(v <= STUDY_BOUND[models[k].solver_dtype]
+               for k, v in rec["card_vs_cpu"].items()):
+        raise AssertionError(f"[studies] (a) card vs CPU: "
+                             f"{rec['card_vs_cpu']}")
+    cold = rec["solves"].get(f"ne {NE} float32 300 it")
+    if cold != WARM_STEPS:
+        raise AssertionError(f"[studies] (a) cold300 ran f32 A at 300 "
+                             f"iterations {cold} times, expected "
+                             f"{WARM_STEPS}")
+    return rec
+
+
+def _contactcap_study(torch, ops) -> dict:
+    """[studies] (b) ``cli.contactcap_study``: both clips, all 5 caps x
+    ``CAP_STEPS`` steps of one env on the card (ne 139, 64, 48 and 40
+    through ``apgd_solve_wide``, ne 32 through ``apgd_solve``: 4 solves per
+    step each), the RMS against ``full`` per clip; ``full`` and ``cap8``
+    on the CPU at ``STUDY_CPU_STEPS``, the card within the bf16 bound."""
+    from deepmimic_mujoco_torch.cli import contactcap_study
+
+    card, rec = _studied(torch, ops, "[studies] (b)", contactcap_study.main,
+                         ["--steps", str(CAP_STEPS)])
+    t0 = time.perf_counter()
+    _, cpu = _quiet(contactcap_study.main, [
+        "--device", "cpu", "--steps", str(STUDY_CPU_STEPS), "--caps",
+        "full,cap8"])
+    rec["seconds_cpu"] = time.perf_counter() - t0
+    runs = len(card["qpos"])
+    rec["s_per_step"] = rec["seconds"] / (runs * CAP_STEPS)
+    rec["card_vs_cpu"] = {
+        f"{c}/{k}": _rel_max(card["qpos"][c, k][:STUDY_CPU_STEPS], q)
+        for (c, k), q in cpu["qpos"].items()}
+    rec["rms"] = {f"{c}/{k}": v for (c, k), v in card["rms"].items()}
+    by_ne = {}
+    for key, v in rec["solves"].items():
+        ne = int(key.split()[1])
+        by_ne[ne] = by_ne.get(ne, 0) + v
+    rec["solves_per_step_by_ne"] = {
+        ne: v / (2 * CAP_STEPS) for ne, v in sorted(by_ne.items())}
+    for clip in ("walk", "spinkick"):
+        print(f"[studies] (b) contactcap {clip}: qpos RMS vs full on the "
+              f"card over {CAP_STEPS} steps: " + ", ".join(
+                  f"{k} {v[1]:.3e}" for (c, k), v in card["rms"].items()
+                  if c == clip)
+              + f" (JAX on the CPU: every cap {JAX_CONTACTCAP:.6f} over 20 "
+              f"and 40 steps)")
+    print(f"[studies] (b) cli.contactcap_study on the card: {runs} runs x "
+          f"{CAP_STEPS} steps of one env, {rec['seconds']:.2f} s "
+          f"({1e3 * rec['s_per_step']:.1f} ms per control step); launches "
+          f"per control step of each cap's run by ne: "
+          + ", ".join(f"ne {ne} {v:.2f}"
+                      for ne, v in rec["solves_per_step_by_ne"].items())
+          + f" (apgd_solve_wide above ne {NE}); launches {rec['launches']}; "
+          f"card vs CPU over {STUDY_CPU_STEPS} steps, of max(1, |x|): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rec["card_vs_cpu"].items())
+          + f" (bound {STUDY_BOUND['bf16']:.0e}); CPU "
+          f"{rec['seconds_cpu']:.2f} s ({_smi()})")
+    if not all(v <= STUDY_BOUND["bf16"] for v in rec["card_vs_cpu"].values()):
+        raise AssertionError(f"[studies] (b) card vs CPU: "
+                             f"{rec['card_vs_cpu']}")
+    if rec["solves_per_step_by_ne"] != {ne: 4.0 for ne in (32, 40, 48, 64,
+                                                           139)}:
+        raise AssertionError(f"[studies] (b) solves per step by ne "
+                             f"{rec['solves_per_step_by_ne']}")
+    return rec
+
+
+def _tracking_studies(torch, ops) -> dict:
+    """[studies] (c) ``cli.clip_tracking_study`` (``TRACK_ARGV``), (d)
+    ``cli.tracking_ceiling_probe`` (spinkick, 5 probes, 32 frames) and (e)
+    ``cli.setting_states`` (walk, ``SETTING_FRAMES`` frames), each on the
+    card (counted) and on the CPU: (c) one-step reward mean and min, (d)
+    each probe's reward mean and term means within ``TRACK_TOL``, (e)
+    every column within 1e-3 of max(1, |x|)."""
+    import numpy as np
+
+    from deepmimic_mujoco_torch.cli import (
+        clip_tracking_study,
+        setting_states,
+        tracking_ceiling_probe,
+    )
+
+    out = {}
+    cases = {
+        "(c) clip_tracking_study": (clip_tracking_study.main, TRACK_ARGV),
+        "(d) tracking_ceiling_probe": (tracking_ceiling_probe.main, [
+            "--clip", "spinkick", "--n-frames", "32"]),
+        "(e) setting_states": (setting_states.main, [
+            "--motion", "walk", "--frames", str(SETTING_FRAMES)])}
+    for name, (fn, argv) in cases.items():
+        card, rec = _studied(torch, ops, f"[studies] {name}", fn, argv)
+        t0 = time.perf_counter()
+        _, cpu = _quiet(fn, argv + ["--device", "cpu"])
+        rec["seconds_cpu"] = time.perf_counter() - t0
+        solves = sum(rec["solves"].values())
+        if name.startswith("(c)"):
+            pairs = {f"{c['clip']} {k}": (c[k], h[k])
+                     for c, h in zip(card, cpu)
+                     for k in ("onestep_reward_mean", "onestep_reward_min")}
+            for c, h in zip(card, cpu):
+                j = JAX_TRACKING[c["clip"]]
+                print(f"[studies] (c) {c['clip']}: one-step reward mean "
+                      f"{c['onestep_reward_mean']:.4f} min "
+                      f"{c['onestep_reward_min']:.4f} (CPU "
+                      f"{h['onestep_reward_mean']:.4f} / "
+                      f"{h['onestep_reward_min']:.4f}; JAX's "
+                      f"benchdata/clip_tracking_mocap_limits.json {j[0]:.4f}"
+                      f" / {j[1]:.4f}); open loop over 30 steps: reward per "
+                      f"step {c['openloop_rew_per_step']:.4f}, length "
+                      f"{c['openloop_eplen_mean']:.2f} (CPU "
+                      f"{h['openloop_rew_per_step']:.4f} / "
+                      f"{h['openloop_eplen_mean']:.2f}; JAX over 300 steps "
+                      f"{j[2]:.4f} / {j[3]:.2f})")
+            steps = solves / 8  # 2 substeps of 4 stage solves
+        elif name.startswith("(d)"):
+            pairs = {}
+            for probe, c in card.items():
+                h = cpu[probe]
+                pairs[f"{probe} reward"] = (c["reward_mean"],
+                                            h["reward_mean"])
+                pairs.update({f"{probe} {k}": (c["terms_mean"][k],
+                                               h["terms_mean"][k])
+                              for k in c["terms_mean"]})
+                print(f"[studies] (d) {probe:22s}: reward mean "
+                      f"{c['reward_mean']:.4f} min {c['reward_min']:.4f} "
+                      f"(CPU {h['reward_mean']:.4f}); terms mean "
+                      + " ".join(f"{k} {v:.3f}"
+                                 for k, v in c["terms_mean"].items())
+                      + f"; worst frame {c['worst_frame']} (CPU "
+                      f"{h['worst_frame']})")
+            steps = len(card)
+        else:
+            pairs = {}
+            d = max(_rel_max(np.asarray(card[k]), np.asarray(cpu[k]))
+                    for k in setting_states.COLUMNS)
+            rec["card_vs_cpu_rel"] = d
+            print(f"[studies] (e) setting_states walk, {SETTING_FRAMES} "
+                  f"frames in one batch: card vs CPU, every column, "
+                  f"{d:.3e} of max(1, |x|) (bound {STUDY_BOUND['bf16']:.0e});"
+                  f" CoM z {float(card['com_z'][0]):.3f}, |bias| "
+                  f"{float(card['bias'][0]):.2f}, |qacc| "
+                  f"{float(card['qacc'][0]):.2f} at frame 0")
+            if not d <= STUDY_BOUND["bf16"]:
+                raise AssertionError(f"[studies] (e) card vs CPU {d}")
+            steps = 1
+        rec["card_vs_cpu"] = {k: abs(a - b) for k, (a, b) in pairs.items()}
+        worst = max(rec["card_vs_cpu"].values(), default=0.0)
+        rec["s_per_control_step"] = rec["seconds"] / steps
+        print(f"[studies] {name} on the card: {rec['seconds']:.2f} s "
+              f"({1e3 * rec['s_per_control_step']:.1f} ms per control step "
+              f"of {steps:g}), CPU {rec['seconds_cpu']:.2f} s; card vs CPU "
+              f"largest difference {worst:.3e} (bound {TRACK_TOL}); "
+              f"launches {rec['launches']} ({_smi()})")
+        if not worst <= TRACK_TOL:
+            raise AssertionError(f"[studies] {name} card vs CPU: "
+                                 f"{rec['card_vs_cpu']}")
+        out[name] = rec
+    return out
+
+
+def studies_phase(torch, ops) -> dict:
+    """[studies] (slice 13): the five physics studies' CLIs on the card
+    against the CPU (:func:`_warmstart_study`, :func:`_contactcap_study`,
+    :func:`_tracking_studies`).  Returns the records and the launches of
+    each kernel."""
+    rec = {"warmstart": _warmstart_study(torch, ops),
+           "contactcap": _contactcap_study(torch, ops)}
+    rec.update(_tracking_studies(torch, ops))
+    rec["launches"] = {k: sum(r["launches"][k] for r in rec.values())
+                       for k in ("apgd_solve", "apgd_solve_lanes",
+                                 "apgd_solve_wide")}
+    return rec
+
+
+def _study_shapes(torch, ops) -> float:
+    """[kernel] the kernel configurations the studies put on user paths, at
+    B = 4096 against the plain version (``ATOL``): ``apgd_solve`` with f32
+    A at 300 iterations (warmstart's cold300) in both row orders, and
+    ``apgd_solve_wide`` at ne 40 and 48 (contactcap's cap10 and cap12), A
+    in bf16 and f32, at 8, 15 and 60 iterations.  Returns the largest
+    error of the wide kernel (the other joins ``apgd_solve``'s)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    a, b, mu, f0 = _problem(torch, B_MAIN, torch.float32, gen)
+    err = {"apgd_solve": 0.0, "apgd_solve_wide": 0.0}
+    for rows, plain in (("grouped", ops._apgd_grouped),
+                        ("interleaved", ops._apgd_scan)):
+        kw = dict(iterations=300, nc=NC, nl=NL)
+        e = float((ops.apgd_solve(a, b, mu, f0, rows=rows, **kw)
+                   - plain(a, b, mu, f0, **kw)).abs().max())
+        err["apgd_solve"] = max(err["apgd_solve"], e)
+        print(f"[kernel] apgd_solve B={B_MAIN} ne={NE} A=float32 rows={rows} "
+              f"iters=300 (warmstart_study's cold300): max_abs_err {e:.3e} "
+              f"(atol {ATOL})")
+    for cap in (10, 12):
+        for a_dtype in (torch.bfloat16, torch.float32):
+            a, b, mu, f0 = _problem(torch, B_MAIN, a_dtype, gen, cap, cap)
+            for iters in (8, 15, 60):
+                kw = dict(iterations=iters, nc=cap, nl=cap)
+                e = float((ops.apgd_solve_wide(a, b, mu, f0, **kw)
+                           - ops._apgd_scan(a, b, mu, f0, **kw)).abs().max())
+                err["apgd_solve_wide"] = max(err["apgd_solve_wide"], e)
+                print(f"[kernel] apgd_solve_wide B={B_MAIN} ne={4 * cap} "
+                      f"(contactcap_study's cap{cap}) A={str(a_dtype)[6:]} "
+                      f"iters={iters}: max_abs_err {e:.3e} (atol {ATOL})")
+    if not max(err.values()) <= ATOL:
+        raise AssertionError(f"[kernel] the studies' configurations: {err}")
+    return err
 
 
 def main() -> int:
@@ -3410,6 +3779,8 @@ def main() -> int:
               f"registers, {ptxas[k].get('spill_bytes')} spill bytes, "
               f"{ptxas[k].get('static_smem')} B static shared memory")
     wide_launches = _larger_caps(torch, ops)
+    study_err = _study_shapes(torch, ops)
+    err["apgd_solve"] = max(err["apgd_solve"], study_err["apgd_solve"])
 
     # 4. main path, before any profiler session: after the profiler has
     # traced the card, later kernel launches of the process can cost more
@@ -3456,7 +3827,7 @@ def main() -> int:
     # profiler session
     train = {768: _train(torch, ops, 768, horizon=TRAIN_HORIZON_768,
                          first=True),
-             B_MAIN: _train(torch, ops, B_MAIN)}
+             B_MAIN: _train(torch, ops, B_MAIN, horizon=WALK_TRAIN_HORIZON)}
     launches["apgd_solve"] += sum(r["launches"]["apgd_solve"]
                                   for r in train.values())
     seg_diff = _segment_card_vs_cpu(torch)
@@ -3547,6 +3918,11 @@ def main() -> int:
     obs["render"] = render_rollouts(torch, ops)
     launches["apgd_solve"] += sum(r["launches"]["apgd_solve"]
                                   for r in obs["render"].values())
+    # the solver-accuracy and tracking studies, card vs CPU; before any
+    # profiler session
+    studies = studies_phase(torch, ops)
+    launches["apgd_solve"] += studies["launches"]["apgd_solve"]
+    wide_launches += studies["launches"]["apgd_solve_wide"]
 
     # one env step's four solves through the dispatch: the wrappers' counts
     # give the launches; profiler windows show what ran on the device (a
@@ -3648,7 +4024,8 @@ def main() -> int:
         # route, _apgd_scan
         "replaces": "deepmimic_mujoco_tpu/ops/apgd.py:181",
         "launches": wide_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in wide.values()),
+        "max_abs_err": max(max(r["max_abs_err"] for r in wide.values()),
+                           study_err["apgd_solve_wide"]),
         **{k: w64[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None, "shape": "B 4096, ne 64 (16/16 caps), bf16 A, "
                                      "15 iterations",
@@ -3670,6 +4047,7 @@ def main() -> int:
     kernels[0]["dist"] = dist
     kernels[0]["mocap_ingest"] = ingest
     kernels[0]["observability"] = obs
+    kernels[0]["studies"] = studies
     print(f"[done] {time.perf_counter() - t_start:.1f} s after the imports")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3702,6 +4080,87 @@ def dp_witness() -> int:
             rec[f"{dtype}/{solve}"] = _dp_card_vs_cpu(
                 torch, dtype, solve, faults=faults, check=False)
     print(json.dumps({"dp_witness": rec}))
+    return 0
+
+
+def _backflip_lane_run(torch, device: str, solver_dtype: str) -> dict:
+    """The backflip lane of imit5_r5b alone (its params sliced out of the
+    5-lane state, 32 envs of the 15-clip env, the frames of
+    ``LANE_FRAMES``), ``cli.imitation15_vmapped --eval-only`` on
+    ``device`` with A in ``solver_dtype``: EpLen mean, reward per step,
+    seconds."""
+    import tempfile
+
+    from deepmimic_mujoco_torch.cli import imitation15_vmapped
+    from deepmimic_mujoco_torch.physics.humanoid import build_humanoid
+
+    lane = LANE_CLIPS.split(",").index("backflip")
+    widen = imitation15_vmapped.mocap_hinge_range
+    imitation15_vmapped.mocap_hinge_range = lambda device=None: widen(
+        build_humanoid(device=device, solver_dtype=solver_dtype))
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, res = _quiet(imitation15_vmapped.main, [
+                "--eval-only", "--device", device, "--clips", "backflip",
+                "--env-clips", CLIPS15, "--envs", "32", "--resume",
+                CKPT_LANES, "--resume-lanes", "--resume-clips", LANE_CLIPS,
+                "--eval-episodes", "32", "--eval-horizon", str(IMIT_HORIZON),
+                "--frames", LANE_FRAMES.split(";")[lane], "--out",
+                os.path.join(tmp, "lane.json"), "--ckpt-root",
+                os.path.join(tmp, "ckpt"), "--log-root",
+                os.path.join(tmp, "logs")])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+    finally:
+        imitation15_vmapped.mocap_hinge_range = widen
+    ev = res["eval"]
+    lens = ev.ep_len.double().cpu()
+    return {"ep_len_mean": float(lens.mean()),
+            "reward_per_step": float(ev.rew_sum.double().cpu().mean())
+            / max(float(lens.mean()), 1.0), "seconds": dt}
+
+
+def f32_witness() -> int:
+    """``python3 chip_smoke.py --f32-witness``: how far the card and the
+    CPU part over whole episodes with the dual matrix A in bf16 and in
+    f32.  gail_r4's evaluation (64 x 300, ``GAIL_FRAMES``) and the backflip
+    lane of imit5_r5b (32 x 300) on the card with A in bf16 and in f32,
+    and on the port's CPU with A in f32 (the CPU's bf16 figures are
+    ``CPU_GAIL`` and ``CPU_LANES``); reported without failing, one JSON
+    line before the last."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    from deepmimic_mujoco_torch.ops import apgd as ops
+
+    card = _smi()
+    print(card)
+    ops.load_kernels(("apgd",))
+    rec = {"card": card}
+    for dev, dtype in (("cuda", "bf16"), ("cuda", "f32"), ("cpu", "f32")):
+        out, dt, _ = _gail_policy_run(torch, dev, dtype)
+        lens = out.ep_len.double()
+        g = {"ep_len_mean": float(lens.mean()),
+             "reward_per_step": float(out.ep_ret.double().mean())
+             / float(lens.mean()), "seconds": dt}
+        b = _backflip_lane_run(torch, dev, dtype)
+        rec[f"{dev}/{dtype}"] = {"gail_r4": g, "backflip": b}
+        print(f"[f32-witness] {dev} A={dtype}: gail_r4 64 x {IMIT_HORIZON} "
+              f"EpLen {g['ep_len_mean']:.2f} reward per step "
+              f"{g['reward_per_step']:.4f} ({dt:.1f} s); imit5_r5b backflip "
+              f"lane 32 x {IMIT_HORIZON} EpLen {b['ep_len_mean']:.2f} reward "
+              f"per step {b['reward_per_step']:.4f} ({b['seconds']:.1f} s)",
+              flush=True)
+    print(f"[f32-witness] the port's CPU with A in bf16 (the smoke's "
+          f"figures): gail_r4 EpLen {CPU_GAIL[0]} reward per step "
+          f"{CPU_GAIL[1]}; backflip lane, 5-lane batch, EpLen "
+          f"{CPU_LANES['backflip'][0]} reward per step "
+          f"{CPU_LANES['backflip'][1]}")
+    print(json.dumps({"f32_witness": rec}))
     return 0
 
 
@@ -3790,6 +4249,8 @@ def wide_vs(old_src: str) -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--dp-witness"]:
         sys.exit(dp_witness())
+    if sys.argv[1:] == ["--f32-witness"]:
+        sys.exit(f32_witness())
     if sys.argv[1:2] == ["--wide-vs"] and len(sys.argv) == 3:
         sys.exit(wide_vs(sys.argv[2]))
     sys.exit(main())

@@ -154,7 +154,7 @@ class DPEnvV3:
                 name = BODY_DEFS[i]
                 if name.endswith("wrist"):
                     name = name.replace("wrist", "elbow")
-                disallowed[self.model.body_names.index(name)] = True
+                disallowed[self.model.body_index(name)] = True
             cand = self.model.cand_body.cpu().numpy()
             self._fall_cand = torch.as_tensor(disallowed[cand], device=dev)
         if control_mode in ("pd", "pd_residual"):

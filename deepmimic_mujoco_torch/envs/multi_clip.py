@@ -144,7 +144,7 @@ class DPEnvV3Multi:
                     body = BODY_DEFS[i]
                     if body.endswith("wrist"):
                         body = body.replace("wrist", "elbow")
-                    disallowed[self.model.body_names.index(body)] = True
+                    disallowed[self.model.body_index(body)] = True
                 fall_cand[k] = disallowed[cand]
             self._fall_cand = torch.as_tensor(fall_cand, device=dev)
 

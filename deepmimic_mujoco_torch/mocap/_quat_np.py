@@ -62,6 +62,20 @@ def euler_rxyz(q: np.ndarray) -> np.ndarray:
     return np.array([a, b, c])
 
 
+def from_euler_rxyz(e: np.ndarray) -> np.ndarray:
+    """The quaternion (w, x, y, z) of intrinsic-xyz euler angles: the
+    inverse of :func:`euler_rxyz`."""
+    ha, hb, hc = np.asarray(e, np.float64) / 2.0
+    ca, sa, cb, sb = np.cos(ha), np.sin(ha), np.cos(hb), np.sin(hb)
+    cc, sc = np.cos(hc), np.sin(hc)
+    return np.array([
+        ca * cb * cc - sa * sb * sc,
+        sa * cb * cc + ca * sb * sc,
+        ca * sb * cc - sa * cb * sc,
+        ca * cb * sc + sa * sb * cc,
+    ])
+
+
 def align_rotation(q: np.ndarray) -> np.ndarray:
     """DeepMimic Y-up → MuJoCo Z-up frame change (w unchanged,
     v → (vx, -vz, vy))."""

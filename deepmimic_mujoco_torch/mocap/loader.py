@@ -67,6 +67,15 @@ class MocapClip:
                                             self.loop)
         return self._qvel_fd
 
+    @property
+    def total_time(self) -> float:
+        return float(self.durations.sum())
+
+    def save_npz(self, path: str) -> None:
+        """Write the raw frames, the loop flag and the name (the bundle
+        :func:`load_npz` reads); conversion re-runs at load time."""
+        np.savez(path, frames=self.raw_frames, loop=self.loop, name=self.name)
+
 
 def continuous_qpos(qpos: np.ndarray) -> np.ndarray:
     """Re-pick, per spherical triple per frame, the euler branch (and per-dof

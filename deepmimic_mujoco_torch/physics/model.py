@@ -97,6 +97,12 @@ class PhysicsModel:
     def device(self) -> torch.device:
         return self.qpos0.device
 
+    def body_index(self, name: str) -> int:
+        return self.body_names.index(name)
+
+    def geom_index(self, name: str) -> int:
+        return self.geom_names.index(name)
+
 
 @dataclasses.dataclass
 class _Body:

@@ -28,10 +28,14 @@ class Monitor:
         self.writer = csv.DictWriter(self.f, fieldnames=("r", "l", "t"))
         self.writer.writeheader()
         self.f.flush()
+        self.episode_rewards = []
+        self.episode_lengths = []
 
     def record(self, ep_ret: float, ep_len: int) -> None:
         epinfo = {"r": round(float(ep_ret), 6), "l": int(ep_len),
                   "t": round(time.time() - self.tstart, 6)}
+        self.episode_rewards.append(epinfo["r"])
+        self.episode_lengths.append(epinfo["l"])
         self.writer.writerow(epinfo)
         self.f.flush()
 

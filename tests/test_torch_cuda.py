@@ -4,8 +4,9 @@ walk, the recipe, the multi-clip env, the learners, the original
 DeepMimic PPO stack's surface and train step, the other envs: DPEnvV1,
 DPEnvV2, HumanoidTestEnv, VecNormalize and the facade, and the
 physics-fidelity modes with the imported models, data-parallel
-training: gloo ranks on the card, NCCL at world 1, and the observability
-and render tools: the trace's APGD count, the render rollouts).
+training: gloo ranks on the card, NCCL at world 1, the observability
+and render tools: the trace's APGD count, the render rollouts, and the
+solver studies' configurations: f32 A at 300 iterations, ne 40 and 48).
 
 Imports no JAX (the card's machine has none), so it runs there without the
 repository's conftest:
@@ -91,6 +92,17 @@ def test_kernels_match_plain(cuda, B, nc, nl, a_dtype, rows):
         torch.testing.assert_close(out_l, ref, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("rows", ["grouped", "interleaved"])
+def test_kernel_at_300_iterations_matches_plain(cuda, rows):
+    """``apgd_solve`` with f32 A at 300 iterations, B = 4096: the cold
+    stage-1 solve of warmstart_study's cold300."""
+    a, b, mu, f0 = _problem(4096, 8, 8, torch.float32, seed=300)
+    plain = ops._apgd_scan if rows == "interleaved" else ops._apgd_grouped
+    kw = dict(iterations=300, nc=8, nl=8)
+    torch.testing.assert_close(ops.apgd_solve(a, b, mu, f0, rows=rows, **kw),
+                               plain(a, b, mu, f0, **kw), atol=ATOL, rtol=0)
+
+
 def test_dispatch_launches_one_kernel_per_solve(cuda):
     """``apgd(..., layout="blocks")`` on the solver's tensors is the kernel
     launch and nothing else: no gather of A, no copy, no scatter of f.  The
@@ -155,6 +167,8 @@ def test_main_path_on_the_card_matches_the_cpu(cuda):
     (300, 37, 28),   # ne = 139: the uncapped humanoid
     (1, 13, 8),      # ne = 47, one env: a block of four env slots
     (37, 16, 0),     # ne = 48, the edge of the third tile; no limits
+    (4096, 10, 10),  # ne = 40: contactcap_study's cap10
+    (4096, 12, 12),  # ne = 48: contactcap_study's cap12
     (4097, 5, 34),   # ne = 49: a fourth tile; B no multiple of any block
     (37, 0, 96),     # ne = 96, the edge of the sixth tile; no contacts
     (5, 20, 37),     # ne = 97
@@ -162,7 +176,8 @@ def test_main_path_on_the_card_matches_the_cpu(cuda):
     (37, 41, 22),    # ne = 145, the smallest of the 12-tile classes
     (3, 63, 2),      # ne = 191
     (4097, 50, 42),  # ne = 192, MAX_NE_WIDE
-], ids=["ne33", "ne64", "ne139", "ne47-B1", "ne48", "ne49-B4097", "ne96",
+], ids=["ne33", "ne64", "ne139", "ne47-B1", "ne48", "ne40-cap10",
+        "ne48-cap12", "ne49-B4097", "ne96",
         "ne97", "ne144", "ne145", "ne191", "ne192-B4097"])
 def test_wide_kernel_matches_plain(cuda, B, nc, nl, a_dtype):
     """``apgd_solve_wide`` against ``_apgd_scan`` (the XLA route's port) on
@@ -961,3 +976,30 @@ def test_render_rollouts_on_the_card_match_the_cpu(cuda):
     rec = chip_smoke.render_rollouts(torch, ops)
     for r in rec.values():
         assert r["alive_card"] == r["alive_cpu"]
+
+
+def test_solver_studies_on_the_card_match_the_cpu(cuda):
+    """``cli.warmstart_study`` (cold300: f32 A at 300 iterations;
+    warm25+bf16) and ``cli.contactcap_study`` (cap10 and cap12: ne 40 and
+    48 through the wide kernel) at 3 steps on the card against the CPU:
+    qpos within 1e-4 of max(1, |x|) for f32 A, 1e-3 for bf16; each run's
+    12 solves on the wide kernel."""
+    from deepmimic_mujoco_torch.cli import contactcap_study, warmstart_study
+
+    def rel(x, ref):
+        return float((abs(x - ref) / abs(ref).clip(min=1.0)).max())
+
+    argv = ["--steps", "3", "--configs", "cold300,warm25+bf16"]
+    card = warmstart_study.main(argv)
+    cpu = warmstart_study.main(argv + ["--device", "cpu"])
+    assert rel(card["qpos"]["cold300"], cpu["qpos"]["cold300"]) <= 1e-4
+    assert rel(card["qpos"]["warm25+bf16"],
+               cpu["qpos"]["warm25+bf16"]) <= 1e-3
+    argv = ["--steps", "3", "--caps", "cap10,cap12"]
+    n0 = (ops.apgd_solve.launches, ops.apgd_solve_wide.launches)
+    card = contactcap_study.main(argv)
+    assert (ops.apgd_solve.launches, ops.apgd_solve_wide.launches) == (
+        n0[0], n0[1] + 2 * 2 * 4 * 3)
+    cpu = contactcap_study.main(argv + ["--device", "cpu"])
+    for k, q in cpu["qpos"].items():
+        assert rel(card["qpos"][k], q) <= 1e-3, k

@@ -204,6 +204,10 @@ import deepmimic_mujoco_torch.cli.plot_curve
 import deepmimic_mujoco_torch.cli.render_policy
 import deepmimic_mujoco_torch.cli.render_vmapped
 import deepmimic_mujoco_torch.cli.play_mocap
+for study in ("warmstart_study", "contactcap_study", "clip_tracking_study",
+              "tracking_ceiling_probe", "setting_states", "gen_assets",
+              "import_motions"):
+    __import__("deepmimic_mujoco_torch.cli." + study)
 from deepmimic_mujoco_torch.envs.dp_env_v3 import DPEnvV3
 try:
     DPEnvV3(dynamics="mujoco", device="cpu")
@@ -218,9 +222,9 @@ def test_mj_host_env_and_cli_import_with_mujoco_refused():
     rendering, plotting and stats modules with their CLIs
     (``io_utils.video``, ``utils.plotting``, ``utils.statistics``,
     ``cli.plot_curve``, ``cli.render_policy``, ``cli.render_vmapped``,
-    ``cli.play_mocap``) import with MuJoCo, cv2, matplotlib, pandas and
-    tensorboard (and JAX) refused; only building the MuJoCo backend
-    reaches for it."""
+    ``cli.play_mocap``) and the studies' and data tools' CLIs import with
+    MuJoCo, cv2, matplotlib, pandas and tensorboard (and JAX) refused;
+    only building the MuJoCo backend reaches for it."""
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-c", _MJ_BLOCKER.format(forbidden=FORBIDDEN,

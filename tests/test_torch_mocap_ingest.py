@@ -13,6 +13,8 @@ exactly), the native library's within 1e-12 of the Python pipeline, as
 import json
 import os
 import shutil
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ import torch
 from deepmimic_mujoco_tpu.mocap import legacy as jlegacy
 from deepmimic_mujoco_tpu.mocap import loader as jloader
 from deepmimic_mujoco_tpu.mocap import native as jnative
+from deepmimic_mujoco_torch.cli import import_motions
 from deepmimic_mujoco_torch.envs.dp_env_v3 import DPEnvV3
 from deepmimic_mujoco_torch.mocap import legacy, loader, native
 from deepmimic_mujoco_torch.mocap.registry import available_clips, clip_path
@@ -172,3 +175,36 @@ def test_env_on_a_json_clip_equals_the_bundled_clip(clip_files):
     for x, y in ((sa, sb), (a.step(sa, act), b.step(sb, act))):
         for k in ("qpos", "qvel", "obs", "reward"):
             assert torch.equal(getattr(x, k), getattr(y, k)), k
+
+
+@pytest.mark.parametrize("suffix", ["json", "txt"])
+def test_import_motions_writes_what_jax_s_tool_writes(clip_files, tmp_path,
+                                                      suffix):
+    """``cli.import_motions`` on a directory of the JSON clips gives the
+    bundles JAX's ``tools/import_motions.py`` writes from it: the same
+    files, and in each the same keys, dtypes and values (the bundled
+    clips' raw frames)."""
+    src = os.path.dirname(next(iter(clip_files[suffix].values())))
+    files = [f for f in import_motions.clip_files([src])
+             if f.endswith("." + suffix)]
+    assert len(files) == 15
+    ours = import_motions.main([*files, "--out", str(tmp_path / "port")])
+    root = os.path.join(os.path.dirname(__file__), "..")
+    subprocess.run([sys.executable, os.path.join(root, "tools",
+                                                 "import_motions.py"),
+                    *files, "--out", str(tmp_path / "jax")],
+                   check=True, capture_output=True, timeout=120)
+    assert sorted(os.listdir(tmp_path / "port")) == sorted(
+        os.listdir(tmp_path / "jax")) == sorted(
+        os.path.basename(p) for p in ours)
+    for f in os.listdir(tmp_path / "jax"):
+        with np.load(tmp_path / "port" / f) as a, \
+                np.load(tmp_path / "jax" / f) as b:
+            assert sorted(a.files) == sorted(b.files) == ["frames", "loop",
+                                                          "name"]
+            for k in a.files:
+                assert a[k].dtype == b[k].dtype, (f, k)
+                np.testing.assert_array_equal(a[k], b[k])
+        with np.load(tmp_path / "port" / f) as a, \
+                np.load(clip_path(f[:-len(".npz")])) as z:
+            np.testing.assert_array_equal(a["frames"], z["frames"])
