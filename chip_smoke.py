@@ -17,6 +17,17 @@ the dual matrix stored in bf16 and in f32, then with planted faults
 imit5_r5b's backflip lane over whole episodes on the card with the dual
 matrix in bf16 and in f32, and on the CPU in f32 (:func:`f32_witness`).
 
+``python3 chip_smoke.py --divergence`` runs gail_r4's 64 episodes x 300
+steps in 8 copies one f32 ulp apart on the card and on the CPU, with the
+one-step check and its localization (each module on the card from the
+CPU's inputs, one ulp at the inputs on each device, the same step with A
+in f32), and prints the divergence curves, the episode spreads and the
+verdict, chaos or a bias of one device (:func:`divergence_mode`).
+
+``python3 chip_smoke.py --tools`` runs ``cli.imitation15_suite`` (2 clips,
+2 iterations, 4 episodes) and ``cli.scaling_bench`` at one rank on the
+card (:func:`tools_mode`).
+
 Phases, each printing its lines before the last:
 
 1. device — the card's name and power limit, as ``nvidia-smi`` prints them;
@@ -95,7 +106,12 @@ Phases, each printing its lines before the last:
    discriminator and the expert cursor, read by ``load_gail_state``): its
    policy over 64 RSI episodes x 300 steps from fixed frames (within 0.03
    reward per step and 5% EpLen of the port's CPU figure, 8 ``apgd_solve``
-   launches per control step), one timed ``GAIL.iteration`` resumed from
+   launches per control step), the one-step check from that rollout's
+   states and actions at every 10th step (1,920 of them: one control step
+   on the card and on the CPU, qpos, qvel, obs and reward within 1e-4 of
+   max(1, |x|), equal done flags, equal selected contact and limit sets
+   outside near-ties; :func:`one_step_phase`), one timed
+   ``GAIL.iteration`` resumed from
    its whole state at 64 envs x 16 steps x g_step 3 (env-steps/s, the
    rollout, policy update, vf epochs and d-step seconds, DLoss, GenAcc,
    ExpertAcc, EpTrueRewMean, meankl ≤ 1.5·max_kl, 8 launches per control
@@ -190,6 +206,7 @@ Phases, each printing its lines before the last:
    (spinkick, 5 probes, 32 frames), their reward means and terms within
    0.01 of the CPU; (e) ``cli.setting_states`` (walk, 10 frames), every
    column within 1e-3 of max(1, |x|);
+   ``[time]`` lines give the wall time at the end of each phase;
 5. one JSON line with every kernel's numbers (with the registers, spills
    and shared memory of the instantiation the main path runs, and ptxas's
    figures for every instantiation), then the result line.
@@ -311,6 +328,15 @@ GAIL_FRAMES = ("9,28,25,11,24,0,27,28,18,29,21,33,11,37,4,35,4,10,5,14,33,26,"
 # (tests/test_torch_gail.py::test_gail_r4_64_episodes_match_jax, which
 # holds them against JAX's runner.evaluate: 299.33, 0.1562)
 CPU_GAIL = (298.33, 0.1634)
+ONE_STEP_EVERY = 10          # the one-step check: every 10th step's state
+DIVERGENCE_DEVICES = ("cuda", "cpu")   # the one-step check, --divergence
+DIVERGENCE_COPIES = (8, 8)             # --divergence: K on each device
+LOCALIZE_ENVS = 8            # --divergence: the one-step check's worst envs
+SUITE_CLIPS = "walk,backflip"  # --tools: cli.imitation15_suite, cut to
+SUITE_ITERS = 2                # 2 of 15 clips, 2 of 150 iterations and
+SUITE_EPISODES = 4             # 4 of 16 episodes
+SCALING_ARGV = ["--devices", "1", "--envs-per-device", "64", "--horizon",
+                "32", "--iters", "2"]
 
 # the original DeepMimic PPO stack: the bundled r5 run (tools/r5_chain.sh:
 # 71-75: --surface deepmimic --motion walk --num-envs 512, resumed; the
@@ -1412,28 +1438,35 @@ def _gail_learner(n_envs: int, horizon: int, device: str = "cuda",
 
 
 def _gail_policy_run(torch, device: str = "cuda",
-                     solver_dtype: str = "bf16", ops=None):
+                     solver_dtype: str = "bf16", ops=None, copies: int = 1,
+                     keep=None):
     """(rollout, seconds, launches) of gail_r4's policy, read by
     ``load_gail_state``, over 64 RSI episodes x 300 steps from
     ``GAIL_FRAMES``, deterministic, through the runner on ``device`` with
     A in ``solver_dtype``; with ``ops``, the launch counts set to 0 just
-    before and read just after."""
+    before and read just after.  ``copies`` > 1 runs that many copies of
+    the 64 starts, copy-major, each copy after the first one f32 ulp away
+    in every qpos entry (``utils/divergence.ulp_starts``); ``keep`` is the
+    runner's per-step callback."""
     from deepmimic_mujoco_torch.algos import runner
     from deepmimic_mujoco_torch.algos.trpo import Draws
     from deepmimic_mujoco_torch.io_utils import checkpoint
+    from deepmimic_mujoco_torch.utils import divergence
 
     learner = _gail_learner(64, GAIL_TRAIN_HORIZON, device=device,
                             solver_dtype=solver_dtype)
     state = checkpoint.load_gail_state(CKPT_GAIL, learner, Draws(
         torch.Generator(device=device).manual_seed(SEED)))
     env = learner.env
-    start = env.reset_at([int(f) for f in GAIL_FRAMES.split(",")])
+    frames = [int(f) for f in GAIL_FRAMES.split(",")]
+    start = (env.reset_at(frames) if copies == 1 else
+             divergence.ulp_starts(env, frames, copies, SEED))
     if ops is not None:
         _zero_counts(ops)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = runner.rollout(env, learner.policy, state.trpo.params, start,
-                         IMIT_HORIZON)
+                         IMIT_HORIZON, keep=keep)
     torch.cuda.synchronize()
     return (out, time.perf_counter() - t0,
             _counts(ops) if ops is not None else None)
@@ -1441,8 +1474,14 @@ def _gail_policy_run(torch, device: str = "cuda",
 
 def _gail_eval(torch, ops) -> dict:
     """[gail] gail_r4's policy over 64 RSI episodes x 300 steps
-    (:func:`_gail_policy_run`), counted."""
-    out, dt, n = _gail_policy_run(torch, ops=ops)
+    (:func:`_gail_policy_run`), counted; then the one-step check
+    (:func:`one_step_phase`) from the states and actions of every
+    ``ONE_STEP_EVERY``-th step of that rollout."""
+    from deepmimic_mujoco_torch.utils import divergence
+
+    kept_states, kept_actions = [], []
+    out, dt, n = _gail_policy_run(torch, ops=ops, keep=divergence.keep_every(
+        ONE_STEP_EVERY, kept_states, kept_actions))
     lens = out.ep_len.double()
     rec = {"ep_len_mean": float(lens.mean()),
            "reward_per_step": float(out.ep_ret.double().mean())
@@ -1467,6 +1506,62 @@ def _gail_eval(torch, ops) -> dict:
     if n != {"apgd_solve": 8 * IMIT_HORIZON, "apgd_solve_lanes": 0,
              "apgd_solve_wide": 0}:
         raise AssertionError(f"[gail] evaluation: APGD launches {n}")
+    rec["one_step"] = one_step_phase(torch, ops, kept_states, kept_actions)
+    return rec
+
+
+def one_step_phase(torch, ops, states: list, actions: list,
+                   tag: str = "[gail]", check: bool = True) -> dict:
+    """The one-step check (``utils/divergence.one_step_check``): one recipe
+    control step (A in bf16, as in the rollout) on the card and on the CPU
+    from the same states and actions, the states of ``states`` joined into
+    one batch: qpos, qvel, obs and reward within
+    ``divergence.STEP_TOL`` of max(1, |x|), equal done flags, and equal
+    contact and limit sets in every substep outside near-ties (k-th and
+    (k+1)-th depths within ``divergence.TIE``).  The card's step is
+    counted (8 ``apgd_solve`` launches).  Without ``check`` a failed check
+    is returned (``ok`` false), not raised."""
+    from deepmimic_mujoco_torch.envs.dp_env_v3 import DPEnvV3
+    from deepmimic_mujoco_torch.envs.types import EnvState
+    from deepmimic_mujoco_torch.physics.humanoid import build_humanoid
+    from deepmimic_mujoco_torch.utils import divergence
+
+    state, action = EnvState.cat(states), torch.cat(actions)
+    env_a, env_b = (DPEnvV3(model=build_humanoid(device=dev), **RECIPE_ENV)
+                    for dev in DIVERGENCE_DEVICES)
+    _zero_counts(ops)
+    t0 = time.perf_counter()
+    rec = divergence.one_step_check(env_a, env_b, state, action)
+    rec["seconds"] = time.perf_counter() - t0
+    rec["launches"] = n = _counts(ops)
+    per_env, flips = rec.pop("per_env"), rec.pop("a_flips")
+    worst = per_env.argsort(descending=True)[:LOCALIZE_ENVS]
+    rec["worst"] = {"envs": worst.tolist(), "diff": per_env[worst].tolist(),
+                    "a_flips": flips[worst].tolist()}
+    rec["a_flips"] = {"envs": int((flips > 0).sum()),
+                      "entries": int(flips.sum()),
+                      "max_diff_without": float(per_env[flips == 0].max())
+                      if bool((flips == 0).any()) else 0.0}
+    print(f"{tag} one-step check: {rec['envs']} states ({len(states)} "
+          f"steps of the rollout, every {ONE_STEP_EVERY}th), one recipe "
+          f"control step (A bf16) on the card and on the CPU, max diff of "
+          f"max(1, |x|): qpos {rec['qpos']:.3e}, qvel {rec['qvel']:.3e}, "
+          f"obs {rec['obs']:.3e}, reward {rec['reward']:.3e} (bound "
+          f"{divergence.STEP_TOL:.0e}); done flags equal {rec['done_equal']}; "
+          f"{rec['selections']} contact and limit selections (2 substeps): "
+          f"{rec['exact_ties']} exact ties at the cut, {rec['near_ties']} "
+          f"near-ties within {divergence.TIE:.0e}, {rec['sets_differ']} sets "
+          f"differ, {rec['bad']} of them outside a near-tie; stored (bf16) "
+          f"entries of A that differ: {rec['a_flips']['entries']} in "
+          f"{rec['a_flips']['envs']} envs, the largest diff of an env "
+          f"without one {rec['a_flips']['max_diff_without']:.3e}; the worst "
+          f"envs " + ", ".join(f"{d:.2e} ({f} flips)" for d, f in zip(
+              rec["worst"]["diff"], rec["worst"]["a_flips"]))
+          + f"; {rec['seconds']:.2f} s; launches {n}")
+    if check and not rec["ok"]:
+        raise AssertionError(f"{tag} the one-step check failed: {rec}")
+    if n != {"apgd_solve": 8, "apgd_solve_lanes": 0, "apgd_solve_wide": 0}:
+        raise AssertionError(f"{tag} one-step check: APGD launches {n}")
     return rec
 
 
@@ -1542,6 +1637,12 @@ def _gail_train(torch, ops) -> dict:
              "apgd_solve_wide": 0}:
         raise AssertionError(f"[gail] resumed training: APGD launches {n}")
     return rec
+
+
+def _mark(t_start: float, phases: str) -> None:
+    """The wall time since ``t_start`` at the end of ``phases``."""
+    print(f"[time] {phases} done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
 
 
 def _tree_to(tree, dev):
@@ -3782,6 +3883,7 @@ def main() -> int:
     study_err = _study_shapes(torch, ops)
     err["apgd_solve"] = max(err["apgd_solve"], study_err["apgd_solve"])
 
+    _mark(t_start, "kernel")
     # 4. main path, before any profiler session: after the profiler has
     # traced the card, later kernel launches of the process can cost more
     # host time (PERF.md §7)
@@ -3822,6 +3924,7 @@ def main() -> int:
                                     (768, HORIZON_768, "lanes")):
         launches[dispatch_of[layout]] += evaluate(n_envs, layout, horizon)
 
+    _mark(t_start, "main")
     # training: TRPO.iteration at 768 and 4096 envs, one segment update on
     # the card against the CPU, and the training CLI; still before any
     # profiler session
@@ -3833,6 +3936,7 @@ def main() -> int:
     seg_diff = _segment_card_vs_cpu(torch)
     obs = {"formats": _train_cli()}
 
+    _mark(t_start, "train")
     # the imitation recipe: evaluation of walk_r2, then training; still
     # before any profiler session
     imit = {"evaluate": _imitation_eval(torch, ops, train_trpo)}
@@ -3841,6 +3945,7 @@ def main() -> int:
                                + imit["train"]["launches"]["apgd_solve"])
     _train_cli(recipe=True)
 
+    _mark(t_start, "imitation")
     # the multi-clip path: DPEnvV3Multi card vs CPU, the multi-skill
     # policy's evaluation, then the TRPO lanes (evaluation, training resumed
     # and fresh, one segment update card vs CPU); before any profiler
@@ -3860,6 +3965,7 @@ def main() -> int:
             lanes_rec["evaluate"], lanes_rec["train_resumed"],
             lanes_rec["train_fresh"]))
 
+    _mark(t_start, "multi, trpo-lanes")
     # GAIL from the bundled r4 run (evaluation, resumed training, one d-step
     # and segment update card vs CPU, the CLI with BC), then PPO (the CLI at
     # bench.py's width, one iteration card vs CPU); before any profiler
@@ -3874,8 +3980,10 @@ def main() -> int:
     ppo["card_vs_cpu"] = _ppo_card_vs_cpu(torch)
     launches["apgd_solve"] += sum(
         r["launches"]["apgd_solve"] for r in (
-            gail["evaluate"], gail["train_resumed"], ppo["train_cli"]))
+            gail["evaluate"], gail["evaluate"]["one_step"],
+            gail["train_resumed"], ppo["train_cli"]))
 
+    _mark(t_start, "gail, ppo")
     # the original DeepMimic PPO stack from the bundled r5 run: evaluation,
     # the training CLI resumed, one train iteration card vs CPU, the CLI on
     # v3, get_action; before any profiler session
@@ -3892,12 +4000,14 @@ def main() -> int:
         dp[k]["launches"]["apgd_solve"] for k in ("evaluate", "train_cli",
                                                    "v3"))
 
+    _mark(t_start, "dp-ppo")
     # the other envs (DPEnvV1, DPEnvV2, HumanoidTestEnv), VecNormalize over a
     # VectorEnv, the DeepMimic facade and their CLIs; before any profiler
     # session
     envs_rec = envs_phase(torch, ops)
     launches["apgd_solve"] += envs_rec["launches"]
 
+    _mark(t_start, "envs")
     # the physics-fidelity modes and the imported models (euler, the
     # Cholesky M⁻¹, PGS, parse_mjcf at 16/16 caps); before any profiler
     # session
@@ -3905,6 +4015,7 @@ def main() -> int:
     launches["apgd_solve"] += modes["launches"]["apgd_solve"]
     wide_launches += modes["launches"]["apgd_solve_wide"]
 
+    _mark(t_start, "physics-modes")
     # data-parallel TRPO across processes (NCCL at world 1, gloo at world 2
     # on the one card, card vs CPU, the dry run) and the DeepMimic JSON
     # clips; before any profiler session
@@ -3913,17 +4024,20 @@ def main() -> int:
     ingest = mocap_ingest_phase(torch, ops)
     launches["apgd_solve"] += sum(n["apgd_solve"]
                                   for n in ingest["launches"])
+    _mark(t_start, "dist, mocap-ingest")
     # the render tools' rollouts, card vs CPU (the rendering needs MuJoCo,
     # which the card's machine lacks); before any profiler session
     obs["render"] = render_rollouts(torch, ops)
     launches["apgd_solve"] += sum(r["launches"]["apgd_solve"]
                                   for r in obs["render"].values())
+    _mark(t_start, "observability (d)")
     # the solver-accuracy and tracking studies, card vs CPU; before any
     # profiler session
     studies = studies_phase(torch, ops)
     launches["apgd_solve"] += studies["launches"]["apgd_solve"]
     wide_launches += studies["launches"]["apgd_solve_wide"]
 
+    _mark(t_start, "studies")
     # one env step's four solves through the dispatch: the wrappers' counts
     # give the launches; profiler windows show what ran on the device (a
     # window may miss a kernel's record, so the most any window saw is read)
@@ -4164,6 +4278,275 @@ def f32_witness() -> int:
     return 0
 
 
+def _divergence_run(torch, device: str, copies: int, keep_states: list,
+                    keep_actions: list) -> dict:
+    """gail_r4's 64 episodes x 300 steps in ``copies`` copies one ulp apart
+    (:func:`_gail_policy_run`) on ``device``, A in bf16: every step's qpos
+    on the host (T + 1, 64·copies, nq), the episodes' lengths and returns,
+    the seconds; on the card also the states and actions of copy 0 at
+    every ``ONE_STEP_EVERY``-th step, for the one-step check."""
+    from deepmimic_mujoco_torch.utils import divergence
+
+    trace = []
+    qpos_keep = divergence.qpos_trace(trace)
+    every = divergence.keep_every(ONE_STEP_EVERY, keep_states, keep_actions)
+
+    def keep(t, state, action):
+        qpos_keep(t, state, action)
+        if device == DIVERGENCE_DEVICES[0]:
+            every(t, state.map(lambda x: x[:64]), action[:64])
+    out, dt, _ = _gail_policy_run(torch, device, copies=copies, keep=keep)
+    trace.append(out.state.qpos)
+    return {"trace": torch.stack(trace).cpu(), "ep_len": out.ep_len.cpu(),
+            "ep_ret": out.ep_ret.cpu(), "seconds": dt, "k": copies}
+
+
+def _localize(torch, states: list, actions: list, envs: list) -> dict:
+    """Where the one-step check's states part the card from the CPU: every
+    module of the step made on the card from the CPU's inputs, over the
+    whole batch (``divergence.localize``: per env, the batch on each device
+    as in the check); how far one f32 ulp at the inputs moves the step on
+    each device alone (``divergence.ulp_sensitivity``); and each device's
+    step of the worst envs (``envs``) alone against its step of them
+    inside the batch.  Each figure at the worst envs and as the largest
+    over all; the worst states themselves, to replay."""
+    from deepmimic_mujoco_torch.envs.dp_env_v3 import DPEnvV3
+    from deepmimic_mujoco_torch.envs.types import EnvState
+    from deepmimic_mujoco_torch.physics.humanoid import build_humanoid
+    from deepmimic_mujoco_torch.utils import divergence
+
+    state, action = EnvState.cat(states), torch.cat(actions)
+    envs_ab = [DPEnvV3(model=build_humanoid(device=dev), **RECIPE_ENV)
+               for dev in DIVERGENCE_DEVICES]
+    idx = torch.tensor(envs)
+    t0 = time.perf_counter()
+    loc = divergence.localize(*envs_ab, state, action)
+    ulp = [divergence.ulp_sensitivity(e, state, action, SEED)
+           for e in envs_ab]
+    alone = []
+    for e in envs_ab:
+        dev = e.model.qpos0.device
+        with torch.no_grad():
+            full = e.step(state.map(lambda t: t.to(dev)), action.to(dev))
+            part = e.step(state.map(lambda t: t[idx.to(t.device)].to(dev)),
+                          action[idx.to(action.device)].to(dev))
+        alone.append(divergence.step_diffs(
+            part, full.map(lambda t: t[idx.to(t.device)])))
+
+    # the same step with A stored in f32 on both devices
+    nxt32 = []
+    for dev in DIVERGENCE_DEVICES:
+        e = DPEnvV3(model=build_humanoid(device=dev, solver_dtype="f32"),
+                    **RECIPE_ENV)
+        with torch.no_grad():
+            nxt32.append(e.step(state.map(lambda t: t.to(dev)),
+                                action.to(dev)))
+    f32 = divergence.step_diffs(*nxt32)
+
+    def at(x):
+        return [float(v) for v in x[idx]]
+    rec = {"modules": {k: {"max": float(v.max()), "worst": at(v)}
+                       for k, v in loc["modules"].items()},
+           "a_bf16_flips": {"total": int(loc["a_bf16_flips"].sum()),
+                            "worst": [int(v) for v in
+                                      loc["a_bf16_flips"][idx]]},
+           "ulp": {dev: {"max": float(u.max()), "worst": at(u)}
+                   for dev, u in zip(("card", "cpu"), ulp)},
+           "alone_vs_batch": {dev: [float(v) for v in a]
+                              for dev, a in zip(("card", "cpu"), alone)},
+           "f32_a": {"max": float(f32.max()), "worst": at(f32)},
+           "envs": envs, "seconds": time.perf_counter() - t0,
+           "states": {k: v[idx.to(v.device)].cpu().tolist() for k, v in (
+               ("qpos", state.qpos), ("qvel", state.qvel),
+               ("mocap_idx", state.mocap_idx), ("init_idx", state.init_idx),
+               ("step_count", state.step_count), ("action", action))}}
+    print(f"[divergence] localize: each module on the card from the CPU's "
+          f"inputs, {state.qpos.shape[0]} states in one batch, max diff of "
+          f"max(1, |x|) over all envs / at the worst env of the one-step "
+          f"check: " + ", ".join(
+              f"{k} {v['max']:.3e} / {v['worst'][0]:.3e}"
+              for k, v in rec["modules"].items())
+          + f"; stored (bf16) entries of A that differ: "
+          f"{rec['a_bf16_flips']['total']} in all, "
+          f"{rec['a_bf16_flips']['worst'][0]} at the worst env")
+    print(f"[divergence] one ulp at the inputs moves the step, over all envs "
+          f"/ at the {len(envs)} worst: card {rec['ulp']['card']['max']:.3e} "
+          f"/ " + ", ".join(f"{x:.2e}" for x in rec["ulp"]["card"]["worst"])
+          + f"; CPU {rec['ulp']['cpu']['max']:.3e} / " + ", ".join(
+              f"{x:.2e}" for x in rec["ulp"]["cpu"]["worst"])
+          + "; the worst envs stepped alone against inside the batch: card "
+          + ", ".join(f"{x:.2e}" for x in rec["alone_vs_batch"]["card"])
+          + "; CPU " + ", ".join(f"{x:.2e}" for x in
+                                rec["alone_vs_batch"]["cpu"])
+          + f"; with A stored in f32 on both devices, card vs CPU over all "
+          f"envs {rec['f32_a']['max']:.3e}, at the worst " + ", ".join(
+              f"{x:.2e}" for x in rec["f32_a"]["worst"])
+          + f"; {rec['seconds']:.1f} s")
+    return rec
+
+
+def divergence_mode() -> int:
+    """``python3 chip_smoke.py --divergence``: do the card and the CPU part
+    over gail_r4's 300-step episodes by chaos or by a bias of one device?
+    The 64 starts of ``GAIL_FRAMES`` in ``DIVERGENCE_COPIES`` copies, copy
+    0 exact and every later copy one f32 ulp away in every qpos entry
+    (``utils/divergence.ulp_starts``), A in bf16, on the card and on the
+    CPU; the one-step check on the card's copy 0 (:func:`one_step_phase`)
+    and its localization (:func:`_localize`); the median and the maximum
+    over the 64 envs of ‖Δqpos‖∞ at ``divergence.CURVE_STEPS`` for card
+    vs CPU (copy 0), card copy 0 vs 1
+    and CPU copy 0 vs 1, with the first step at which half the pairs
+    exceed ``divergence.SPLIT``; each device's mean EpLen and reward per
+    step per copy and their spread; and the verdict of
+    ``divergence.verdict``.  One JSON line before the last."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    from deepmimic_mujoco_torch.ops import apgd as ops
+    from deepmimic_mujoco_torch.utils import divergence
+
+    smi = _smi()
+    print(smi)
+    ops.load_kernels(("apgd",))
+    t_start = time.perf_counter()
+    states, actions = [], []
+    runs = [_divergence_run(torch, dev, k, states, actions)
+            for dev, k in zip(DIVERGENCE_DEVICES, DIVERGENCE_COPIES)]
+    for dev, r in zip(("card", "cpu"), runs):
+        print(f"[divergence] {dev}: 64 episodes x {IMIT_HORIZON} steps x "
+              f"{r['k']} copies, A bf16: {r['seconds']:.1f} s", flush=True)
+    one = one_step_phase(torch, ops, states, actions, tag="[divergence]",
+                         check=False)
+    first = slice(0, 64)
+    second = slice(64, 128)
+    card, cpu = (r["trace"] for r in runs)
+    pairs = {
+        "card_cpu": divergence.curves(divergence.distances(
+            card[:, first], cpu[:, first])),
+        "card_ulp": divergence.curves(divergence.distances(
+            card[:, first], card[:, second])),
+        "cpu_ulp": divergence.curves(divergence.distances(
+            cpu[:, first], cpu[:, second]))}
+    for name, c in pairs.items():
+        print(f"[divergence] {name}: ||dqpos||_inf median / max over 64 envs "
+              f"at step " + ", ".join(
+                  f"{st}: {c['median'][st]:.3e} / {c['max'][st]:.3e}"
+                  for st in c["median"])
+              + f"; half the pairs above {divergence.SPLIT:g} from step "
+              f"{c['split_step']}")
+    spread = {dev: divergence.episode_spread(r["ep_len"], r["ep_ret"], r["k"])
+              for dev, r in zip(("card", "cpu"), runs)}
+    for dev, sp in spread.items():
+        print(f"[divergence] {dev}: per copy EpLen "
+              + ", ".join(f"{x:.2f}" for x in sp["ep_len"])
+              + f" (mean {sp['ep_len_mean']:.3f}, s {sp['ep_len_s']:.3f}); "
+              "reward per step "
+              + ", ".join(f"{x:.4f}" for x in sp["reward_per_step"])
+              + f" (mean {sp['reward_per_step_mean']:.5f}, s "
+              f"{sp['reward_per_step_s']:.5f})")
+    loc = _localize(torch, states, actions, one["worst"]["envs"])
+    v = divergence.verdict(one["ok"], pairs, spread)
+    print(f"[divergence] verdict: {v['verdict']} (one-step check "
+          f"{'passed' if v['one_step_ok'] else 'failed'}; card-CPU median "
+          f"within {divergence.CURVE_RATIO:g}x of the one-ulp pairs at "
+          f"{sum(v['curves_ok'].values())} of {len(v['curves_ok'])} steps; "
+          + "; ".join(f"{k} gap {m['gap']:.4f} against 3 sigma {m['bound']:.4f}"
+                      for k, m in v["means"].items())
+          + f"); {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"divergence": {
+        "card": smi, "copies": DIVERGENCE_COPIES, "one_step": one,
+        "localize": loc, "curves": pairs, "spread": spread, "verdict": v}}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def scaling_phase(torch, ops) -> dict:
+    """``cli.scaling_bench`` on the card at one rank, in-process: 64 envs x
+    32 steps, one warm-up and 2 timed iterations, counted (4 ``apgd_solve``
+    launches per walk step); a finite positive ``env_steps_per_s`` and
+    ``scaling_efficiency`` 1.0."""
+    from deepmimic_mujoco_torch.cli import scaling_bench
+
+    _zero_counts(ops)
+    t0 = time.perf_counter()
+    text, rows = _quiet(scaling_bench.main, SCALING_ARGV)
+    dt = time.perf_counter() - t0
+    n = _counts(ops)
+    row = rows[0]
+    print(f"[tools] cli.scaling_bench {' '.join(SCALING_ARGV)} on the card: "
+          f"{text.strip()}; {dt:.1f} s in all; launches {n}")
+    sps = row["env_steps_per_s"]
+    if not (row["devices"] == 1 and sps == sps and 0 < sps < float("inf")
+            and row["scaling_efficiency"] == 1.0):
+        raise AssertionError(f"[tools] scaling_bench: {rows}")
+    if n != {"apgd_solve": 4 * 3 * 32, "apgd_solve_lanes": 0,
+             "apgd_solve_wide": 0}:
+        raise AssertionError(f"[tools] scaling_bench: APGD launches {n}")
+    return {"rows": rows, "seconds": dt, "launches": n}
+
+
+def tools_mode() -> int:
+    """``python3 chip_smoke.py --tools``: ``cli.imitation15_suite`` on the
+    card, ``--clips walk,backflip --iters 2 --episodes 4`` into a temporary
+    directory (its trainings and evaluations are subprocesses of
+    ``cli.train_trpo`` and ``cli.eval_imitation``, 8 ``apgd_solve``
+    launches per control step each): every row free of ``error``, with
+    finite positive EpLen and reward per step; then ``cli.scaling_bench``
+    (:func:`scaling_phase`).  One JSON line before the last."""
+    import math
+    import tempfile
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    from deepmimic_mujoco_torch.cli import imitation15_suite
+    from deepmimic_mujoco_torch.ops import apgd as ops
+
+    card = _smi()
+    print(card)
+    ops.load_kernels(("apgd", "apgd_wide"))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        text, rows = _quiet(imitation15_suite.main, [
+            "--clips", SUITE_CLIPS, "--iters", str(SUITE_ITERS),
+            "--episodes", str(SUITE_EPISODES), "--out",
+            os.path.join(tmp, "suite.json"), "--log-root",
+            os.path.join(tmp, "logs"), "--ckpt-root",
+            os.path.join(tmp, "ckpt")])
+        dt = time.perf_counter() - t0
+    print(text[text.index("| motion |"):text.index("\nwrote")])
+    # the recipe's 8 launches per control step: training g_step 3 x the
+    # CLI's 256-step horizon per iteration, evaluation 300 steps
+    per_clip = 8 * (SUITE_ITERS * 3 * 256 + IMIT_HORIZON)
+    for r in rows:
+        print(f"[tools] imitation15_suite {r['motion']}: " + ", ".join(
+            f"{k} {v}" for k, v in r.items() if k != "motion")
+              + f"; {per_clip} apgd_solve launches in its subprocesses "
+              "(8 per control step)")
+    print(f"[tools] imitation15_suite --clips {SUITE_CLIPS} --iters "
+          f"{SUITE_ITERS} --episodes {SUITE_EPISODES} on the card: "
+          f"{dt:.1f} s")
+    for r in rows:
+        vals = [r.get(k, math.nan) for k in ("eplen_mean", "rew_per_step")]
+        if "error" in r or not all(math.isfinite(v) and v > 0 for v in vals):
+            raise AssertionError(f"[tools] imitation15_suite row: {r}")
+    scaling = scaling_phase(torch, ops)
+    print(json.dumps({"tools": {"card": card, "suite": rows,
+                                "suite_seconds": dt,
+                                "suite_launches_per_clip": per_clip,
+                                "scaling_bench": scaling}}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def wide_vs(old_src: str) -> int:
     """``python3 chip_smoke.py --wide-vs OLD.cu``: the wide kernel of this
     checkout against another version of ``apgd_wide.cu`` with the same C
@@ -4251,6 +4634,10 @@ if __name__ == "__main__":
         sys.exit(dp_witness())
     if sys.argv[1:] == ["--f32-witness"]:
         sys.exit(f32_witness())
+    if sys.argv[1:] == ["--divergence"]:
+        sys.exit(divergence_mode())
+    if sys.argv[1:] == ["--tools"]:
+        sys.exit(tools_mode())
     if sys.argv[1:2] == ["--wide-vs"] and len(sys.argv) == 3:
         sys.exit(wide_vs(sys.argv[2]))
     sys.exit(main())

@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -29,21 +29,27 @@ class EvalResult(NamedTuple):
 def rollout(env, policy, params: dict, state: EnvState, horizon: int,
             stochastic: bool = False,
             generator: Optional[torch.Generator] = None,
-            record: bool = False) -> Rollout:
+            record: bool = False,
+            keep: Optional[Callable[[int, EnvState, torch.Tensor],
+                                    None]] = None) -> Rollout:
     """Run every env of ``state`` for ``horizon`` steps.  After an env's
     first done its state is frozen and it adds nothing to its return and
     length (the JAX rollout's alive mask).  Actions are the policy mean, or
-    samples from ``generator`` when ``stochastic``."""
+    samples from ``generator`` when ``stochastic``.  ``keep(t, state,
+    action)``, when given, sees each step's state and action before the
+    step (the divergence checks of ``utils/divergence.py``)."""
     B = state.qpos.shape[0]
     alive = torch.ones(B, dtype=torch.bool, device=state.qpos.device)
     ep_ret = torch.zeros(B, device=state.qpos.device)
     ep_len = torch.zeros(B, dtype=torch.int64, device=state.qpos.device)
     obs, acs, rews = [], [], []
-    for _ in range(horizon):
+    for t in range(horizon):
         ob = state.obs
         mean, logstd = policy.mean_logstd(params, ob)
         ac = (distributions.diag_gaussian.sample(generator, mean, logstd)
               if stochastic else distributions.diag_gaussian.mode(mean, logstd))
+        if keep is not None:
+            keep(t, state, ac)
         nxt = env.step(state, ac)
         ep_ret = ep_ret + torch.where(alive, nxt.reward,
                                       torch.zeros_like(nxt.reward))

@@ -10,8 +10,10 @@ pose error.
         --hidden-sizes 1024,512 --activation relu --episodes 32
 
 Episodes start from random mocap frames drawn with ``--seed``, or from the
-frames listed in ``--frames``.  Without ``--device cpu`` it runs on the
-CUDA card.  The JAX tool's ``--joint-limits mocap`` is not ported."""
+frames listed in ``--frames``.  ``--joint-limits mocap`` widens the hinge
+ranges to the bundled clips' poses, as the checkpoint's training did.
+Without ``--device cpu`` (or ``--platform cpu``) it runs on the CUDA
+card."""
 
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ from deepmimic_mujoco_torch.envs import rewards
 from deepmimic_mujoco_torch.envs.dp_env_v3 import DPEnvV3
 from deepmimic_mujoco_torch.io_utils import checkpoint
 from deepmimic_mujoco_torch.models.policy import MlpPolicy
-from deepmimic_mujoco_torch.utils.device import resolve_device
+from deepmimic_mujoco_torch.physics.humanoid import mocap_hinge_range
+from deepmimic_mujoco_torch.utils.device import PLATFORMS, resolve_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -37,6 +40,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fixed-logstd", type=float, default=-3.0)
     p.add_argument("--episodes", type=int, default=32)
     p.add_argument("--horizon", type=int, default=300)
+    p.add_argument("--platform", default=None, choices=sorted(PLATFORMS))
+    p.add_argument("--joint-limits", default="xml", choices=["xml", "mocap"],
+                   help="must match the checkpoint's training flag")
     p.add_argument("--obs-mode", default=None, choices=["legacy", "full"])
     p.add_argument("--termination", default=None,
                    choices=["com", "fall_contact"])
@@ -47,7 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="comma list of start frames, one per episode")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
-                   help="torch device (default cuda; pass cpu for the CPU)")
+                   help="torch device (default cuda; pass cpu for the CPU); "
+                        "takes precedence over --platform")
     return p
 
 
@@ -55,8 +62,12 @@ def build_parser() -> argparse.ArgumentParser:
 def run(args) -> dict:
     """Rolls the episodes; returns the per-episode lengths and returns and
     the summary figures the tool prints."""
-    device = resolve_device(args.device)
-    env = DPEnvV3(clip=args.motion, reward_mode=args.reward_mode,
+    device = resolve_device(args.device or PLATFORMS.get(args.platform))
+    model = None
+    if args.joint_limits == "mocap":
+        model = mocap_hinge_range(device=device)
+    env = DPEnvV3(clip=args.motion, model=model,
+                  reward_mode=args.reward_mode,
                   control_mode=args.control_mode, n_substeps=2,
                   max_episode_steps=args.horizon, obs_mode=args.obs_mode,
                   termination=args.termination, device=device)
@@ -102,12 +113,14 @@ def run(args) -> dict:
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     r = run(args)
-    print(f"episodes           : {len(r['ep_len'])} (deterministic policy)")
+    print(f"episodes           : {len(r['ep_len'])} (RSI starts, "
+          f"deterministic policy)")
     print(f"EpLen   mean/median: {r['len_mean']:.1f} / "
           f"{r['len_median']:.0f}  (cap {args.horizon})")
     print(f"EpRew   mean       : {r['ret_mean']:.2f}  "
           f"({r['reward_per_step']:.3f}/step)")
-    print(f"pose err (weighted): {r['pose_err']:.3f} rad")
+    print(f"pose err (weighted): {r['pose_err']:.3f} rad"
+          f" ≈ {np.degrees(r['pose_err']):.1f} deg")
     return r
 
 

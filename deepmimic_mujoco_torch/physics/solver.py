@@ -112,6 +112,16 @@ def _caps(model: PhysicsModel) -> tuple[int, int, int, int]:
             nc_full, nl_full)
 
 
+def select_deepest(pos: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices (B, k) of the ``k`` deepest (most negative) entries of each
+    row of ``pos`` (B, n), deepest first; equal depths in index order, as
+    ``jax.lax.top_k(-pos, k)`` orders them.  A stable sort: the same sets
+    on every device, also when equal depths straddle the cut
+    (``torch.topk`` promises no order among ties, and its CPU and CUDA
+    versions pick different ones)."""
+    return torch.sort(pos, dim=1, stable=True).indices[:, :k]
+
+
 # M⁻¹ applied to the columns of x (B, nv, k) (engine._inv_mul)
 InvMul = Callable[[torch.Tensor], torch.Tensor]
 
@@ -125,10 +135,8 @@ def assemble_system(model: PhysicsModel, inv_mul: InvMul,
     nv = model.nv
     nc, nl, _, _ = _caps(model)
 
-    # deepest candidates first.  Ties may come out in another order than
-    # jax.lax.top_k's; forces are compared in the full candidate layout.
-    c_sel = torch.topk(-contacts.pos, nc, dim=1).indices   # (B, nc)
-    l_sel = torch.topk(-limits.pos, nl, dim=1).indices     # (B, nl)
+    c_sel = select_deepest(contacts.pos, nc)   # (B, nc)
+    l_sel = select_deepest(limits.pos, nl)     # (B, nl)
     c_pos = contacts.pos.gather(1, c_sel)
     c_act = contacts.active.gather(1, c_sel)
     c_jac = contacts.jac.gather(

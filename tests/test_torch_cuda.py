@@ -5,8 +5,9 @@ DeepMimic PPO stack's surface and train step, the other envs: DPEnvV1,
 DPEnvV2, HumanoidTestEnv, VecNormalize and the facade, and the
 physics-fidelity modes with the imported models, data-parallel
 training: gloo ranks on the card, NCCL at world 1, the observability
-and render tools: the trace's APGD count, the render rollouts, and the
-solver studies' configurations: f32 A at 300 iterations, ne 40 and 48).
+and render tools: the trace's APGD count, the render rollouts, the
+solver studies' configurations: f32 A at 300 iterations, ne 40 and 48,
+and the solver's selection on tied depths and the one-step check).
 
 Imports no JAX (the card's machine has none), so it runs there without the
 repository's conftest:
@@ -1003,3 +1004,45 @@ def test_solver_studies_on_the_card_match_the_cpu(cuda):
     cpu = contactcap_study.main(argv + ["--device", "cpu"])
     for k, q in cpu["qpos"].items():
         assert rel(card["qpos"][k], q) <= 1e-3, k
+
+
+@pytest.mark.parametrize("caps", [(8, 8), (16, 16), (1000, 1000)])
+def test_selection_on_the_card_equals_the_cpu_on_ties(cuda, caps):
+    """``solver.select_deepest`` on the card picks the CPU's indices, in
+    the CPU's order, on depths with exact ties at and across the cut
+    (``tests/torch_selection_cases.py``; the CPU is held to
+    ``jax.lax.top_k`` in ``tests/test_torch_selection.py``)."""
+    from deepmimic_mujoco_torch.physics import solver
+    from tests.torch_selection_cases import CASES, depths
+
+    model = build_humanoid(contact_cap=caps[0], limit_cap=caps[1],
+                           device="cpu")
+    nc, nl, nc_full, nl_full = solver._caps(model)
+    for case in CASES:
+        for seed, (n, k) in enumerate(((nc_full, nc), (nl_full, nl))):
+            pos = torch.from_numpy(depths(case, n, k, seed))
+            cpu = solver.select_deepest(pos, k)
+            card = solver.select_deepest(pos.cuda(), k).cpu()
+            assert torch.equal(card, cpu), (case, n, k)
+
+
+def test_one_step_check_on_a_small_batch(cuda):
+    """The smoke's one-step check (``chip_smoke.one_step_phase``, which
+    raises otherwise) on 32 recipe states: 16 envs at steps 0 and 10 of a
+    rollout on the card under actions 0.1·N(0, 1)."""
+    import chip_smoke
+    from deepmimic_mujoco_torch.utils import divergence
+
+    env = DPEnvV3(model=build_humanoid(device="cuda"), **chip_smoke.RECIPE_ENV)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = env.reset_at(list(range(0, 32, 2)))
+    states, actions = [], []
+    keep = divergence.keep_every(10, states, actions)
+    with torch.no_grad():
+        for t in range(11):
+            action = 0.1 * torch.randn((16, 28), generator=gen, device="cuda")
+            keep(t, state, action)
+            state = env.step(state, action)
+    rec = chip_smoke.one_step_phase(torch, ops, states, actions, tag="[test]")
+    assert rec["ok"] and rec["envs"] == 32
+    assert rec["selections"] == 4 * 32

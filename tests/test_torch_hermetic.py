@@ -6,8 +6,9 @@ from ``deepmimic_mujoco_torch`` or ``chip_smoke.py`` would stop the port
 there at import.  One test runs the CLIs in a subprocess whose import
 system refuses those packages, another imports the modules that reach the
 host-MuJoCo backend or the host-only libraries there; the others scan the
-sources.  MuJoCo may be imported only by ``physics/mj_host.py`` and
-``io_utils/video.py``, and only inside their functions; cv2, matplotlib,
+sources.  MuJoCo may be imported only by ``physics/mj_host.py``,
+``io_utils/video.py`` and ``cli/ball_vs_hinge_study.py``, and only inside
+their functions; cv2, matplotlib,
 pandas and tensorboard, which serve rendering, plots and logs on the host,
 only inside functions."""
 
@@ -24,6 +25,8 @@ FORBIDDEN = ("jax", "jaxlib", "mujoco", "deepmimic_mujoco_tpu")
 MJ_HOST = os.path.join(ROOT, "deepmimic_mujoco_torch", "physics",
                        "mj_host.py")
 VIDEO = os.path.join(ROOT, "deepmimic_mujoco_torch", "io_utils", "video.py")
+BALL_VS_HINGE = os.path.join(ROOT, "deepmimic_mujoco_torch", "cli",
+                             "ball_vs_hinge_study.py")
 # host-only libraries: imported inside functions only, anywhere
 HOST_ONLY = ("cv2", "matplotlib", "pandas", "tensorboard")
 
@@ -161,14 +164,16 @@ def _imported_roots(path):
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_port_sources_import_no_jax(path):
     """No source imports JAX or the JAX package; none but
-    ``physics/mj_host.py`` and ``io_utils/video.py`` imports MuJoCo."""
-    allowed = {"mujoco"} if path in (MJ_HOST, VIDEO) else set()
+    ``physics/mj_host.py``, ``io_utils/video.py`` and
+    ``cli/ball_vs_hinge_study.py`` imports MuJoCo."""
+    allowed = ({"mujoco"} if path in (MJ_HOST, VIDEO, BALL_VS_HINGE)
+               else set())
     bad = sorted(set(_imported_roots(path)) & (set(FORBIDDEN) - allowed))
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
 def test_mj_host_imports_mujoco_only_inside_functions():
-    for path in (MJ_HOST, VIDEO):
+    for path in (MJ_HOST, VIDEO, BALL_VS_HINGE):
         found = [in_fn for root, in_fn in _imports(path) if root == "mujoco"]
         assert found and all(found), (path, found)
 
@@ -206,8 +211,13 @@ import deepmimic_mujoco_torch.cli.render_vmapped
 import deepmimic_mujoco_torch.cli.play_mocap
 for study in ("warmstart_study", "contactcap_study", "clip_tracking_study",
               "tracking_ceiling_probe", "setting_states", "gen_assets",
-              "import_motions"):
+              "import_motions", "imitation15_suite", "scaling_bench",
+              "ball_vs_hinge_study"):
     __import__("deepmimic_mujoco_torch.cli." + study)
+import deepmimic_mujoco_torch.utils.divergence
+from deepmimic_mujoco_torch.cli import ball_vs_hinge_study
+assert ball_vs_hinge_study.main(["--v1-xml", "absent.xml"]) == {{
+    "skipped": "reference XML absent"}}
 from deepmimic_mujoco_torch.envs.dp_env_v3 import DPEnvV3
 try:
     DPEnvV3(dynamics="mujoco", device="cpu")
@@ -222,9 +232,11 @@ def test_mj_host_env_and_cli_import_with_mujoco_refused():
     rendering, plotting and stats modules with their CLIs
     (``io_utils.video``, ``utils.plotting``, ``utils.statistics``,
     ``cli.plot_curve``, ``cli.render_policy``, ``cli.render_vmapped``,
-    ``cli.play_mocap``) and the studies' and data tools' CLIs import with
-    MuJoCo, cv2, matplotlib, pandas and tensorboard (and JAX) refused;
-    only building the MuJoCo backend reaches for it."""
+    ``cli.play_mocap``), the studies' and data tools' CLIs, the suite,
+    the scaling bench, the ball-vs-hinge study (which runs to its note
+    without the upstream XML) and ``utils.divergence`` import with MuJoCo,
+    cv2, matplotlib, pandas and tensorboard (and JAX) refused; only
+    building the MuJoCo backend reaches for it."""
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-c", _MJ_BLOCKER.format(forbidden=FORBIDDEN,
